@@ -1,0 +1,109 @@
+"""The port's CUDA kernels on the card (marker ``cuda``).
+
+Skipped where there is no CUDA device; on a machine with one they build
+video_filler_tpu_torch/csrc/ with nvcc.  Run there with:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
+
+This file imports no jax (``--noconftest`` skips the suite's jax setup).
+Tolerances: forward rtol 1e-5, f32 backward rtol 1e-6, bf16 backward one
+bf16 rounding (rtol 2**-7); the kernel and its plain version compute the
+same formula, the forward in another summation order.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from video_filler_tpu_torch.config import Opt
+from video_filler_tpu_torch.ops import losses, masks
+from video_filler_tpu_torch.ops.cuda import fused_loss as fl
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    """The card, with TF32 off for f32 convs and matmuls (cuDNN's default
+    is on, which would hold the card to ~1e-3 against the CPU)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = \
+        saved
+
+
+def _operands(dev, shape, dtype, strided_target):
+    g = torch.Generator(device=dev).manual_seed(0)
+    b, h, w, c = shape
+    pred = torch.randn(shape, generator=g, device=dev).to(dtype)
+    if strided_target:
+        real = torch.randn(b, 2 * h, 2 * w, c, generator=g, device=dev)
+        target = masks.extract_center(real)
+        weights = losses.overlap_l2_weights((h, w), 4, 0.999, device=dev)[None]
+    else:
+        target = torch.randn(shape, generator=g, device=dev)
+        weights = torch.rand(b, h, w, 1, generator=g, device=dev)
+    return pred, target, weights
+
+
+CASES = [((64, 64, 64, 3), torch.float32, True),
+         ((64, 64, 64, 3), torch.bfloat16, True),
+         ((3, 7, 9, 5), torch.float32, False),
+         ((3, 7, 9, 5), torch.bfloat16, False)]
+
+
+@pytest.mark.parametrize("shape,dtype,strided", CASES,
+                         ids=["center_f32", "center_bf16", "ragged_f32",
+                              "ragged_bf16"])
+def test_kernels_match_plain_version(cuda, shape, dtype, strided):
+    pred, target, w = _operands(cuda, shape, dtype, strided)
+    before = dict(fl.LAUNCHES)
+    leaf = pred.clone().requires_grad_(True)
+    loss = fl.fused_weighted_mse(leaf, target, w)
+    loss.backward(torch.tensor(1.3, device=cuda))
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == {"fwd": before["fwd"] + 1,
+                           "bwd": before["bwd"] + 1}
+    ref = fl.weighted_mse_reference(pred, target, w)
+    torch.testing.assert_close(loss.detach(), ref, rtol=1e-5, atol=0)
+    ref_grad = fl.weighted_mse_grad_reference(pred, target, w,
+                                              torch.tensor(1.3, device=cuda))
+    assert leaf.grad.dtype == dtype
+    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(leaf.grad.float(), ref_grad.float(),
+                               rtol=rtol, atol=0)
+
+
+def test_forward_is_bitwise_repeatable(cuda):
+    pred, target, w = _operands(cuda, (64, 64, 64, 3), torch.bfloat16, True)
+    a = fl.launch_forward(pred, target, w)
+    b = fl.launch_forward(pred, target, w)
+    assert torch.equal(a, b)
+
+
+def test_mixed_devices_raise(cuda):
+    pred, target, w = _operands(cuda, (3, 7, 9, 5), torch.float32, False)
+    with pytest.raises(ValueError):
+        fl.fused_weighted_mse(pred, target, w.cpu())
+
+
+def test_tiny_step_on_the_card_matches_the_cpu(cuda):
+    from video_filler_tpu_torch.train import step as tstep
+    kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
+              overlapPred=4, computeDtype="float32")
+    real = torch.from_numpy(np.random.RandomState(3).rand(
+        4, 128, 128, 3).astype(np.float32) * 2 - 1)
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        opt = Opt(device=dev, **kw)
+        state = tstep.init_train_state(opt, "center",
+                                       torch.Generator().manual_seed(5))
+        m = tstep.make_train_step(opt, "center")(state, {"real": real.to(dev)})
+        metrics[dev] = {k: v.item() for k, v in m.items()}
+    for k, v in metrics["cpu"].items():
+        assert metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-6), k
