@@ -8,19 +8,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
   2. build    -- nvcc builds video_filler_tpu_torch/csrc/fused_loss.cu for
                  sm_90a; prints the seconds and ptxas's register report.
   3. kernels  -- the fused weighted-MSE kernels against their plain PyTorch
-                 versions on the card: the center shape (64,64,64,3) with
-                 (1,64,64,1) ring weights in f32 and with bf16 pred, and a
-                 ragged (3,7,9,5) with strided operands.  Forward rtol 1e-5;
-                 backward rtol 1e-6 in f32, one bf16 ulp for bf16 pred;
-                 two forwards bitwise equal.  Times kernel and plain version.
+                 versions on the card, at the operands the main paths give
+                 them: the center shape (64,64,64,3) with (1,64,64,1) ring
+                 weights in f32 and with bf16 pred, a ragged (3,7,9,5) with
+                 strided operands, and the 128x128 regimes -- video
+                 (64,128,128,12) bf16 pred with (64,128,128,1) mask weights,
+                 the video composite (f32 pred, the same weights), wholeim
+                 with full-size weights and logo with a 0-dim weight.
+                 Forward rtol 1e-5; backward rtol 1e-6 in f32, one bf16 ulp
+                 for bf16 pred; two forwards bitwise equal.  Times kernel and
+                 plain version.
   4. parity   -- one tiny-width f32 train step on the card against the same
-                 step on the CPU (the CPU port is held against the JAX
-                 package by tests/test_torch_*.py).
+                 step on the CPU, for center, video and wholeim (the CPU port
+                 is held against the JAX package by tests/test_torch_*.py).
   5. main     -- ``video_filler_tpu_torch.train.loop.main`` at full width
                  (nef=ngf=ndf=64, nBottleneck=4000, fineSize=128, batch 64,
-                 bf16) for 5 steps on a synthetic image folder; every logged
-                 metric finite, each loss kernel launched >= 5 times.
-  6. timing   -- 20 steps on one device-resident batch: ms/step, clips/s.
+                 bf16) on synthetic data: center for 5 steps; the canonical
+                 video configuration (predLen 4, wtl2 0.999, weight_nomask
+                 0.05, maskValue 110/255) for 5 steps with a checkpoint, its
+                 autoResume for 5 more, a withInit run from that checkpoint
+                 at weight_nomask 0 (composite, f32 pred) for 3; logo and
+                 wholeim for 2 each.  Every logged metric finite; each loss
+                 kernel launched at least once per step on every run.
+  6. timing   -- 20 steps on one device-resident batch, center and video:
+                 ms/step, clips/s, peak memory, device idle share.
      (--profile adds a torch.profiler table of device time by kernel.)
 Then one JSON line of the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -31,6 +42,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -41,13 +53,15 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-FULL_WIDTH_ARGS = [
-    "regime=center", "device=cuda", "batchSize=64", "nef=64", "ngf=64",
-    "ndf=64", "nBottleneck=4000", "fineSize=128", "wtl2=0.999",
-    "overlapPred=4", "computeDtype=bfloat16", "niter=1", "ntrain=320",
-    "display=0", "checkpointEvery=2", "manualSeed=1", "nThreads=4",
-    "name=chip_smoke",
-]
+WIDTH = ["device=cuda", "batchSize=64", "nef=64", "ngf=64", "ndf=64",
+         "nBottleneck=4000", "fineSize=128", "wtl2=0.999",
+         "computeDtype=bfloat16", "display=0", "manualSeed=1", "nThreads=4"]
+FULL_WIDTH_ARGS = ["regime=center", *WIDTH, "overlapPred=4", "niter=1",
+                   "ntrain=320", "checkpointEvery=2", "name=chip_smoke"]
+# The reference's canonical video configuration (runtrainvid.sh:31-61).
+# maskValue keeps its default, 110/255.
+VIDEO_ARGS = ["regime=video", *WIDTH, "predLen=4", "weight_nomask=0.05",
+              "loadSize=240"]
 MAIN_STEPS = 5
 TIMED_STEPS = 20
 
@@ -122,8 +136,9 @@ def check_bf16_ulp(name, got, ref):
     return float(err.max())
 
 
-def kernel_checks(torch, fl, losses, masks):
-    """Phase 3: returns the numbers for the result line (center, bf16)."""
+def kernel_operands(torch, losses, masks):
+    """(name, pred, target, weights) at the geometries the main paths give
+    the loss kernels, on the card."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     real = torch.randn(64, 128, 128, 3, generator=g, device=dev)
@@ -135,15 +150,41 @@ def kernel_checks(torch, fl, losses, masks):
         0, 2, 3, 1)
     target_r = torch.randn(3, 7, 9, 5, generator=g, device=dev)
     w_r = torch.rand(3, 7, 9, 1, generator=g, device=dev)
-    gbar = torch.tensor(1.7, device=dev)
-    cases = [
+    # video, predLen 4: a contiguous f32 clip, a (B,H,W,1) mask whose
+    # weights are wtl2 * (mask*(1-0.05) + 0.05), stride 0 on C
+    clip = torch.rand(64, 128, 128, 12, generator=g, device=dev) * 2 - 1
+    mask = (torch.rand(64, 128, 128, 1, generator=g, device=dev)
+            < 0.3).float()
+    w_vid = 0.999 * losses.mask_l2_weights(mask, 0.05)
+    fake = (torch.rand(64, 128, 128, 12, generator=g, device=dev) * 2
+            - 1).bfloat16()
+    composite = masks.fill_in(clip, mask, fake)   # f32, as jnp.where gives
+    # wholeim: 2x2 target patches with a full-size mask
+    mask_wi = (torch.rand(64, 128, 128, 12, generator=g, device=dev)
+               < 0.3).float()
+    w_wi = 0.999 * losses.mask_l2_weights(mask_wi, 0.05)
+    gt_logo = clip[..., :3].contiguous()
+    wtl2 = torch.tensor(0.999, device=dev)
+    return [
         ("center f32", pred_c, target, ring),
         ("center bf16", pred_c.bfloat16(), target, ring),
         ("ragged f32", pred_r, target_r, w_r),
         ("ragged bf16", pred_r.bfloat16(), target_r, w_r),
+        ("video bf16", fake, clip, w_vid),
+        ("video composite f32", composite, clip, w_vid),
+        ("wholeim bf16", fake, clip, w_wi),
+        ("logo bf16", fake[..., :3].contiguous(), gt_logo, wtl2),
     ]
+
+
+def kernel_checks(torch, fl, losses, masks):
+    """Phase 3: every geometry against the plain version; device times for
+    all but the ragged ones.  Returns the numbers by geometry name."""
+    gbar = torch.tensor(1.7, device="cuda")
     numbers = {}
-    for name, p, t, w in cases:
+    for name, p, t, w in kernel_operands(torch, losses, masks):
+        if name == "video composite f32" and p.dtype != torch.float32:
+            fail("the composite of a bf16 fake into the f32 clip is not f32")
         fwd = fl.launch_forward(p, t, w)
         fwd2 = fl.launch_forward(p, t, w)
         torch.cuda.synchronize()
@@ -162,57 +203,141 @@ def kernel_checks(torch, fl, losses, masks):
         fl.fused_weighted_mse(leaf, t, w).backward(gbar)
         if not torch.equal(leaf.grad, grad):
             fail(f"{name}: autograd gradient differs from the kernel's")
-        print(f"{name:12s} shape {tuple(p.shape)} fwd max|err| "
-              f"{fwd_err:.3e}  bwd max|err| {bwd_err:.3e}  bitwise-repeat ok")
-        if name.startswith("center"):
-            calls = {
-                "fwd": lambda: fl.launch_forward(p, t, w),
-                "fwd_plain": lambda: fl.weighted_mse_reference(p, t, w),
-                "bwd": lambda: fl.launch_backward(p, t, w, gbar),
-                "bwd_plain": lambda: fl.weighted_mse_grad_reference(
-                    p, t, w, gbar),
-            }
-            # Device time from the trace; the event time between 200
-            # back-to-back calls is bounded by the host's launch rate.
-            dev = {k: device_ms(f, 50) for k, f in calls.items()}
-            wall = {k: cuda_ms(f, 200) for k, f in calls.items()}
-            for k in calls:
-                print(f"{name:12s} {k:9s} device {dev[k] * 1e3:7.2f} us/call"
-                      f"  back-to-back {wall[k] * 1e3:7.2f} us/call")
-            if min(dev.values()) <= 0:
-                fail(f"{name}: the profiler recorded no device time")
-            numbers[name] = dict(dev, fwd_err=fwd_err, bwd_err=bwd_err)
-    return numbers["center bf16"]
+        print(f"{name:20s} pred {tuple(p.shape)} {str(p.dtype)[6:]} weights "
+              f"{tuple(w.shape)} strides {tuple(w.expand(p.shape).stride())}"
+              f": fwd max|err| {fwd_err:.3e}  bwd max|err| {bwd_err:.3e}  "
+              f"bitwise-repeat ok")
+        numbers[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err)
+        if name.startswith("ragged"):
+            continue
+        calls = {
+            "fwd": lambda: fl.launch_forward(p, t, w),
+            "fwd_plain": lambda: fl.weighted_mse_reference(p, t, w),
+            "bwd": lambda: fl.launch_backward(p, t, w, gbar),
+            "bwd_plain": lambda: fl.weighted_mse_grad_reference(p, t, w, gbar),
+        }
+        # Device time from the trace; the event time between 200
+        # back-to-back calls is bounded by the host's launch rate.
+        dev = {k: device_ms(f, 50) for k, f in calls.items()}
+        wall = {k: cuda_ms(f, 200) for k, f in calls.items()}
+        for k in calls:
+            print(f"{name:20s} {k:9s} device {dev[k] * 1e3:8.2f} us/call"
+                  f"  back-to-back {wall[k] * 1e3:8.2f} us/call")
+        if min(dev.values()) <= 0:
+            fail(f"{name}: the profiler recorded no device time")
+        numbers[name].update(dev)
+    return numbers
 
 
-def parity_check(torch, Opt, step_mod):
-    """Phase 4: tiny f32 step, card against CPU, from the same init."""
-    import numpy as np
-    kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
-              overlapPred=4, computeDtype="float32")
+def parity_batches(np):
+    """Tiny inputs of each regime the parity phase checks, made with numpy
+    from a seed: (regime, extra options, batch)."""
     rs = np.random.RandomState(3)
-    real = torch.from_numpy(rs.rand(4, 128, 128, 3).astype(np.float32) * 2 - 1)
-    out = {}
-    for device in ("cpu", "cuda"):
-        opt = Opt(device=device, **kw)
-        state = step_mod.init_train_state(opt, "center",
-                                          torch.Generator().manual_seed(5))
-        step = step_mod.make_train_step(opt, "center")
-        metrics = step(state, {"real": real.to(device)})
-        out[device] = ({k: v.item() for k, v in metrics.items()},
-                       [p.detach().cpu() for p in state.gen.parameters()])
-    for k, v in out["cpu"][0].items():
-        got = out["cuda"][0][k]
-        if not math.isclose(got, v, rel_tol=1e-3, abs_tol=1e-6):
-            fail(f"parity: {k} on the card {got} vs CPU {v}")
-    # First Adam step ~ lr*sign(g): a tiny gradient can flip sign, worth
-    # 2*lr_G = 4e-3 (the JAX suite's bound for the same comparison).
-    worst = max(float((a - b).abs().max())
-                for a, b in zip(out["cuda"][1], out["cpu"][1]))
-    if worst > 4.1e-3:
-        fail(f"parity: G params after one step differ by {worst}")
-    print(f"card vs CPU, tiny f32 step: metrics within rtol 1e-3 "
-          f"({json.dumps(out['cuda'][0])}); G params max|diff| {worst:.2e}")
+
+    def images(c):
+        return rs.rand(4, 128, 128, c).astype(np.float32) * 2 - 1
+
+    box = np.zeros((4, 128, 128, 1), np.float32)
+    box[:, 40:80, 30:90] = 1.0
+    return [
+        ("center", dict(overlapPred=4), {"real": images(3)}),
+        ("video", dict(predLen=2, weight_nomask=0.05),
+         {"real": images(6), "mask": box}),
+        ("wholeim", dict(weight_nomask=0.05),
+         {"masked": images(27), "real": images(12),
+          "mask": np.repeat(box, 12, axis=-1)}),
+    ]
+
+
+def parity_check(torch, np, Opt, step_mod):
+    """Phase 4: tiny f32 steps, card against CPU, from the same init."""
+    base = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
+                computeDtype="float32")
+    for regime, extra, batch in parity_batches(np):
+        out = {}
+        for device in ("cpu", "cuda"):
+            opt = Opt(device=device, **base, **extra)
+            state = step_mod.init_train_state(
+                opt, regime, torch.Generator().manual_seed(5))
+            step = step_mod.make_train_step(opt, regime)
+            metrics = step(state, {k: torch.from_numpy(v).to(device)
+                                   for k, v in batch.items()})
+            out[device] = ({k: v.item() for k, v in metrics.items()},
+                           [p.detach().cpu() for p in state.gen.parameters()])
+        for k, v in out["cpu"][0].items():
+            got = out["cuda"][0][k]
+            if not math.isclose(got, v, rel_tol=1e-3, abs_tol=1e-6):
+                fail(f"parity {regime}: {k} on the card {got} vs CPU {v}")
+        # First Adam step ~ lr*sign(g): a tiny gradient can flip sign, worth
+        # 2*lr_G = 4e-3 (the JAX suite's bound for the same comparison).
+        worst = max(float((a - b).abs().max())
+                    for a, b in zip(out["cuda"][1], out["cpu"][1]))
+        if worst > 4.1e-3:
+            fail(f"parity {regime}: G params after one step differ by "
+                 f"{worst}")
+        print(f"card vs CPU, tiny f32 {regime} step: metrics within rtol "
+              f"1e-3 ({json.dumps(out['cuda'][0])}); G params max|diff| "
+              f"{worst:.2e}")
+
+
+def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
+             expect=None):
+    """Drive ``loop.main`` once from ``tmp`` with the launch counts set to
+    0 just before; check the steps it logged (every metric finite) and that
+    each loss kernel launched at least once per step.  ``expect``: the
+    epoch of each of the last ``steps`` logged steps.  Returns (state,
+    launch counts)."""
+    for k in fl.LAUNCHES:
+        fl.LAUNCHES[k] = 0
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        state = loop.main([*args, f"name={name}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    launches = dict(fl.LAUNCHES)
+    with open(os.path.join(tmp, "logs", f"{name}.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    logged = [r for r in recs if "step" in r][-steps:]
+    if expect is not None and [r["epoch"] for r in logged] != expect:
+        fail(f"{name}: logged epochs {[r['epoch'] for r in logged]}, "
+             f"expected {expect}")
+    if len([r for r in recs if "step" in r]) < steps:
+        fail(f"{name}: logged fewer than {steps} steps")
+    for r in logged:
+        bad = [k for k in step_mod.METRIC_KEYS if not math.isfinite(r[k])]
+        if bad:
+            fail(f"{name}: non-finite metrics {bad} at step {r['step']}")
+    if launches["fwd"] < steps or launches["bwd"] < steps:
+        fail(f"{name}: loss kernels launched {launches} times in {steps} "
+             f"steps")
+    n_params = sum(p.numel() for p in state.gen.parameters())
+    print(f"{name}: {steps} full-width steps in {seconds:.1f} s (first-step "
+          f"cudnn autotune included); G params {n_params / 1e6:.1f} M; "
+          f"kernel launches {launches}; errG_l2 by step "
+          + " ".join(f"{r['errG_l2']:.4f}" for r in logged))
+    return state, launches
+
+
+def time_step(torch, step_fn, state, batch, label, smi, knum=None):
+    """Phase 6 for one configuration: ms/step and clips/s over TIMED_STEPS
+    steps on one device-resident batch, peak memory, device idle share."""
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step_fn(state, batch), TIMED_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{label}: {step_ms:.2f} ms/step, {64 * 1e3 / step_ms:.1f} clips/s, "
+          f"peak memory {peak_gb:.2f} GB on {smi}")
+    if knum is not None:
+        loss_ms = knum["fwd"] + knum["bwd"]
+        print(f"{label}: loss kernels (fwd+bwd, device) {loss_ms * 1e3:.1f} "
+              f"us = {100 * loss_ms / step_ms:.2f}% of the step")
+    step_dev = device_ms(lambda: step_fn(state, batch), 5)
+    print(f"{label}: device busy {step_dev:.2f} ms of each {step_ms:.2f} ms "
+          f"step: idle share {100 * (1 - step_dev / step_ms):.1f}%")
+    return step_ms
 
 
 def main() -> None:
@@ -225,7 +350,10 @@ def main() -> None:
         fail("CUDA is not available")
     profile = "--profile" in sys.argv[1:]
 
+    import numpy as np
+
     from video_filler_tpu_torch.config import Opt, from_args, split_regime
+    from video_filler_tpu_torch.data import synthetic
     from video_filler_tpu_torch.data.synthetic import make_image_folder
     from video_filler_tpu_torch.ops import losses, masks
     from video_filler_tpu_torch.ops.cuda import build
@@ -260,66 +388,92 @@ def main() -> None:
     knum = kernel_checks(torch, fl, losses, masks)
 
     phase("4 card vs CPU parity")
-    parity_check(torch, Opt, step_mod)
+    parity_check(torch, np, Opt, step_mod)
 
     phase("5 main path")
-    args = list(FULL_WIDTH_ARGS)
+    total = {"fwd": 0, "bwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        make_image_folder(os.path.join(tmp, "data"), n=64 * MAIN_STEPS,
-                          h=160, w=200)
-        args.append(f"DATA_ROOT={os.path.join(tmp, 'data')}")
-        for k in fl.LAUNCHES:
-            fl.LAUNCHES[k] = 0
-        cwd = os.getcwd()
-        os.chdir(tmp)
-        try:
-            t0 = time.perf_counter()
-            state = loop.main(args)
-            torch.cuda.synchronize()
-            t_main = time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
-        launches = dict(fl.LAUNCHES)
-        with open(os.path.join(tmp, "logs", "chip_smoke.jsonl")) as f:
-            recs = [json.loads(line) for line in f]
-    steps = [r for r in recs if "step" in r]
-    if len(steps) != MAIN_STEPS:
-        fail(f"main path logged {len(steps)} steps, expected {MAIN_STEPS}")
-    for r in steps:
-        bad = [k for k in step_mod.METRIC_KEYS
-               if not math.isfinite(r[k])]
-        if bad:
-            fail(f"non-finite metrics {bad} at step {r['step']}")
-    if launches["fwd"] < MAIN_STEPS or launches["bwd"] < MAIN_STEPS:
-        fail(f"loss kernels launched {launches} times in {MAIN_STEPS} steps")
-    n_params = sum(p.numel() for p in state.gen.parameters())
-    print(f"{MAIN_STEPS} full-width steps in {t_main:.1f} s (first-step "
-          f"cudnn autotune included); G params {n_params / 1e6:.1f} M; "
-          f"kernel launches {launches}")
-    print("errG_l2 by step: "
-          + " ".join(f"{r['errG_l2']:.4f}" for r in steps))
+        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+        make_image_folder(j("data"), n=64 * MAIN_STEPS, h=160, w=200)
+        # 320 frames: an epoch holds as many batches as the corpus has
+        # frames (ntrain is capped by the dataset size, as in the JAX loop).
+        synthetic.make_video_corpus(j("corpus"), n_videos=2,
+                                    frames=32 * MAIN_STEPS, h=240, w=320)
+        synthetic.make_mask_png(j("mask.png"), h=240, w=320,
+                                box=(100, 130, 170, 220))
+        d_masked, d_gt = synthetic.make_paired_folders(j("pairs"), n=128,
+                                                       h=160, w=200)
+        center_args = [*FULL_WIDTH_ARGS, f"DATA_ROOT={j('data')}"]
+        state_c, launches = run_main(torch, fl, loop, step_mod, center_args,
+                                     "chip_smoke", MAIN_STEPS, tmp)
+        add(launches)
+        video = [*VIDEO_ARGS, f"DATA_ROOT={j('corpus')}",
+                 f"maskName={j('mask.png')}", f"ntrain={64 * MAIN_STEPS}"]
+        add(run_main(torch, fl, loop, step_mod,
+                     [*video, "niter=1", "checkpointEvery=1"],
+                     "video", MAIN_STEPS, tmp, [1] * MAIN_STEPS)[1])
+        ckpt = j("checkpoints", "video_1_state.npz")
+        if not os.path.exists(ckpt):
+            fail(f"the video run wrote no checkpoint {ckpt}")
+        state_v, launches = run_main(
+            torch, fl, loop, step_mod,
+            [*video, "niter=2", "checkpointEvery=2", "autoResume=1"],
+            "video", MAIN_STEPS, tmp, [2] * MAIN_STEPS)
+        add(launches)
+        if state_v.step != 2 * MAIN_STEPS:
+            fail(f"the resumed video run ended at step {state_v.step}, "
+                 f"expected {2 * MAIN_STEPS}")
+        del state_v
+        add(run_main(
+            torch, fl, loop, step_mod,
+            [*video[:-1], "ntrain=192", "niter=1", "checkpointEvery=2",
+             "withInit=1", f"initName={ckpt}", "weight_nomask=0"],
+            "video_withinit", 3, tmp, [1] * 3)[1])
+        add(run_main(
+            torch, fl, loop, step_mod,
+            ["regime=logo", *WIDTH, f"DATA_ROOT={d_masked}",
+             f"DATA_ROOT_GT={d_gt}", "loadSize=0", "ntrain=128", "niter=1",
+             "checkpointEvery=2"], "logo", 2, tmp, [1] * 2)[1])
+        add(run_main(
+            torch, fl, loop, step_mod,
+            ["regime=wholeim", *WIDTH, f"DATA_ROOT={j('corpus')}",
+             f"maskName={j('mask.png')}", "loadSize=240",
+             "weight_nomask=0.05", "ntrain=128", "niter=1",
+             "checkpointEvery=2"], "wholeim", 2, tmp, [1] * 2)[1])
+    print(f"kernel launches over every main-path run: {total}")
 
     phase("6 timing")
-    opt = from_args(split_regime(args)[1])
-    step_fn = step_mod.make_train_step(opt, "center")
-    preprocess = step_mod.make_preprocess(opt, "center")
+    smi_line = smi.splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(0)
+    opt = from_args(split_regime(center_args)[1])
     raw = torch.randint(0, 256, (64, 128, 128, 3), generator=g,
                         dtype=torch.uint8, device="cuda")
-    batch = preprocess({"raw": raw}, torch.Generator().manual_seed(0))
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = cuda_ms(lambda: step_fn(state, batch), TIMED_STEPS)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"center step, batch 64, full width, bf16: {step_ms:.2f} ms/step, "
-          f"{64 * 1e3 / step_ms:.1f} clips/s, peak memory {peak_gb:.2f} GB "
-          f"on {smi.splitlines()[0]}")
-    loss_share = (knum["fwd"] + knum["bwd"]) / step_ms
-    print(f"loss kernels (fwd+bwd, device) "
-          f"{(knum['fwd'] + knum['bwd']) * 1e3:.1f} us = "
-          f"{100 * loss_share:.2f}% of the step")
-    step_dev = device_ms(lambda: step_fn(state, batch), 5)
-    print(f"device busy {step_dev:.2f} ms of each {step_ms:.2f} ms step: idle "
-          f"share {100 * (1 - step_dev / step_ms):.1f}%")
+    batch = step_mod.make_preprocess(opt, "center")(
+        {"raw": raw}, torch.Generator().manual_seed(0))
+    time_step(torch, step_mod.make_train_step(opt, "center"), state_c, batch,
+              "center step, batch 64, full width, bf16", smi_line,
+              knum["center bf16"])
+    # Each configuration's peak memory holds its own state only.
+    del state_c, batch
+    gc.collect()
+    opt = from_args(split_regime(video)[1])
+    state = step_mod.init_train_state(opt, "video",
+                                      torch.Generator().manual_seed(0))
+    raw = torch.randint(0, 256, (64, 128, 128, 12), generator=g,
+                        dtype=torch.uint8, device="cuda")
+    mask = torch.zeros(64, 128, 128, 1, dtype=torch.uint8, device="cuda")
+    mask[:, 40:80, 30:90] = 1
+    batch = step_mod.make_preprocess(opt, "video")(
+        {"raw": raw, "mask": mask}, torch.Generator().manual_seed(0))
+    step_fn = step_mod.make_train_step(opt, "video")
+    time_step(torch, step_fn, state, batch,
+              "video step, batch 64, predLen 4, full width, bf16", smi_line,
+              knum["video bf16"])
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
         with tprofile(activities=[ProfilerActivity.CPU,
@@ -331,24 +485,27 @@ def main() -> None:
                                         row_limit=40, max_name_column_width=90))
         rows = sorted(device_rows(prof),
                       key=lambda e: -e.self_device_time_total)
-        total = sum(e.self_device_time_total for e in rows)
-        print(f"device activities over 5 steps: {total / 1e3:.2f} ms")
+        busy = sum(e.self_device_time_total for e in rows)
+        print(f"device activities over 5 steps: {busy / 1e3:.2f} ms")
         for e in rows[:40]:
-            print(f"{100 * e.self_device_time_total / total:6.2f}% "
+            print(f"{100 * e.self_device_time_total / busy:6.2f}% "
                   f"{e.self_device_time_total / 5e3:8.3f} ms/step "
                   f"x{e.count // 5:<4d} {e.key[:110]}")
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"
+    main_geom = knum["video bf16"]
+    err = {k: max(v[f"{k}_err"] for v in knum.values())
+           for k in ("fwd", "bwd")}
     print(json.dumps({"kernels": [
         {"name": "fused_weighted_mse_fwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:58", "launches": launches["fwd"],
-         "max_abs_err": knum["fwd_err"], "ms": knum["fwd"],
-         "plain_ms": knum["fwd_plain"]},
+         "replaces": f"{ref}:58", "launches": total["fwd"],
+         "max_abs_err": err["fwd"], "ms": main_geom["fwd"],
+         "plain_ms": main_geom["fwd_plain"]},
         {"name": "fused_weighted_mse_bwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:69", "launches": launches["bwd"],
-         "max_abs_err": knum["bwd_err"], "ms": knum["bwd"],
-         "plain_ms": knum["bwd_plain"]},
+         "replaces": f"{ref}:69", "launches": total["bwd"],
+         "max_abs_err": err["bwd"], "ms": main_geom["bwd"],
+         "plain_ms": main_geom["bwd_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

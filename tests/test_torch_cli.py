@@ -1,4 +1,5 @@
-"""The port's trainer CLI, its refusals, and its independence from jax."""
+"""The port's trainer CLI: every 2-D regime, checkpoints and resume, its
+refusals, and its independence from jax."""
 
 import json
 import os
@@ -10,7 +11,12 @@ import pytest
 import torch
 
 from video_filler_tpu_torch.config import Opt, resolve_device
-from video_filler_tpu_torch.data.synthetic import make_image_folder
+from video_filler_tpu_torch.data.synthetic import (
+    make_image_folder,
+    make_mask_png,
+    make_paired_folders,
+    make_video_corpus,
+)
 from video_filler_tpu_torch.train import loop
 
 torch.set_num_threads(1)
@@ -50,16 +56,109 @@ def test_cli_trains_two_steps(tmp_path):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("regime=video", "A.7"), ("regime=video3d", "A.13"),
+    ("regime=video3d", "A.13"),
     ("dataDevice=1", "A.10"), ("modelParallel=2", "A.14"),
-    ("noiseGen=1", "A.8"), ("gradAccum=2", "A.8"), ("withInit=1", "A.7"),
-    ("autoResume=1", "A.6"), ("loadName=x", "A.6"), ("evalEvery=1", "A.9"),
+    ("noiseGen=1", "A.8"), ("gradAccum=2", "A.8"), ("evalEvery=1", "A.9"),
     ("displayServer=1", "A.9"), ("profileSteps=3", "A.9"),
-    ("checkpointEvery=1", "A.6"),
 ])
 def test_unsupported_option_exits_naming_its_roadmap_item(arg, item):
     with pytest.raises(SystemExit, match=rf"ROADMAP {item}"):
         loop.main([*TINY, arg])
+
+
+SMALL = ["device=cpu", "batchSize=2", "nef=8", "ngf=8", "ndf=8",
+         "nBottleneck=16", "wtl2=0.999", "computeDtype=float32", "ntrain=4",
+         "nThreads=1", "display=0", "manualSeed=3"]
+REGIME_ARGS = {
+    "center": ["overlapPred=4", "loadSize=0", "DATA_ROOT=data"],
+    "video": ["predLen=2", "weight_nomask=0.05", "loadSize=150",
+              "DATA_ROOT=corpus", "maskName=mask.png"],
+    "logo": ["loadSize=0", "DATA_ROOT=pairs/masked",
+             "DATA_ROOT_GT=pairs/gt_pairs"],
+    "wholeim": ["weight_nomask=0.05", "loadSize=150", "DATA_ROOT=corpus",
+                "maskName=mask.png"],
+}
+VIDEO = ["regime=video", *SMALL, *REGIME_ARGS["video"]]
+
+
+def _make_data(d):
+    """The synthetic datasets REGIME_ARGS name, under ``d``."""
+    make_image_folder(str(d / "data"), n=8, h=140, w=150)
+    make_video_corpus(str(d / "corpus"), n_videos=2, frames=6, h=180, w=240)
+    make_mask_png(str(d / "mask.png"), h=180, w=240)
+    make_paired_folders(str(d / "pairs"), n=4, h=140, w=150)
+
+
+@pytest.fixture(scope="module")
+def video_dir(tmp_path_factory):
+    """A synthetic corpus and mask, and a one-epoch video checkpoint
+    ``checkpoints/base_1_state.npz`` made by the CLI."""
+    d = tmp_path_factory.mktemp("video_cli")
+    _make_data(d)
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        loop.main([*VIDEO, "niter=1", "checkpointEvery=1", "name=base"])
+    finally:
+        os.chdir(cwd)
+    return d
+
+
+def _steps(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if '"step"' in line]
+
+
+# The options the port refused until it had the video regime and
+# checkpoints, each now run: (extra arguments, what the run must show).
+FORMERLY_REFUSED = {
+    "regime=video": ([], "trains"),
+    "withInit=1": (["withInit=1", "initName=checkpoints/base_1_state.npz",
+                    "weight_nomask=0"], "trains"),
+    "autoResume=1": (["autoResume=1", "name=base", "niter=2"], "resumes"),
+    "loadName=x": (["loadName=base", "loadIter=1", "niter=2"], "resumes"),
+    "checkpointEvery=1": (["checkpointEvery=1"], "checkpoints"),
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_REFUSED))
+def test_formerly_refused_option_now_runs(video_dir, monkeypatch, case):
+    extra, shows = FORMERLY_REFUSED[case]
+    monkeypatch.chdir(video_dir)
+    name = case.split("=")[0]
+    args = [*VIDEO, "niter=1", "checkpointEvery=5", f"name={name}", *extra]
+    state = loop.main(args)
+    log = f"logs/{'base' if 'name=base' in extra else name}.jsonl"
+    steps = _steps(log)
+    assert steps and all(np.isfinite(r["errG_l2"]) for r in steps)
+    if shows == "resumes":
+        assert state.step == 4 and steps[-1]["epoch"] == 2
+    else:
+        assert state.step == 2
+    if shows == "checkpoints":
+        assert os.path.exists(f"checkpoints/{name}_1_state.npz")
+
+
+@pytest.mark.parametrize("regime", ["center", "video", "logo", "wholeim"])
+def test_cli_checkpoints_and_auto_resumes_every_regime(tmp_path, regime):
+    """Two CLI processes: one epoch with a checkpoint, then autoResume to
+    epoch 2; the second run's steps are logged under epoch 2."""
+    _make_data(tmp_path)
+    for niter in (1, 2):
+        proc = subprocess.run(
+            [sys.executable, "-m", "video_filler_tpu_torch.train",
+             f"regime={regime}", *SMALL, *REGIME_ARGS[regime],
+             f"niter={niter}", "checkpointEvery=1", "autoResume=1",
+             "name=r"],
+            cwd=tmp_path, env=_env(), capture_output=True, text=True,
+            timeout=300)
+        assert proc.returncode == 0, proc.stderr
+    assert "auto-resumed r at epoch 1" in proc.stdout
+    steps = _steps(tmp_path / "logs" / "r.jsonl")
+    assert [r["epoch"] for r in steps] == [1, 1, 2, 2]
+    assert all(np.isfinite(r["errG_total"]) for r in steps)
+    assert sorted(os.listdir(tmp_path / "checkpoints")) == \
+        ["r_1_state.npz", "r_2_state.npz"]
 
 
 def test_port_imports_with_jax_blocked():

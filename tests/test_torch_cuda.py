@@ -8,7 +8,8 @@ video_filler_tpu_torch/csrc/ with nvcc.  Run there with:
 This file imports no jax (``--noconftest`` skips the suite's jax setup).
 Tolerances: forward rtol 1e-5, f32 backward rtol 1e-6, bf16 backward one
 bf16 rounding (rtol 2**-7); the kernel and its plain version compute the
-same formula, the forward in another summation order.
+same formula, the forward in another summation order.  Card against CPU:
+metrics rtol 1e-3 (cuDNN's conv algorithms sum in another order).
 """
 
 import numpy as np
@@ -57,26 +58,66 @@ CASES = [((64, 64, 64, 3), torch.float32, True),
          ((3, 7, 9, 5), torch.bfloat16, False)]
 
 
-@pytest.mark.parametrize("shape,dtype,strided", CASES,
-                         ids=["center_f32", "center_bf16", "ragged_f32",
-                              "ragged_bf16"])
-def test_kernels_match_plain_version(cuda, shape, dtype, strided):
-    pred, target, w = _operands(cuda, shape, dtype, strided)
+def _regime_operands(dev, geometry):
+    """The loss kernels' operands in the 128x128 regimes (train/step.py):
+    video with (B,H,W,1) mask weights, stride 0 on C; its composite, whose
+    pred is f32 because a bf16 fake filled into the f32 clip promotes;
+    wholeim with full-size weights; logo with a 0-dim weight."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    b = 16
+    clip = torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2 - 1
+    fake = (torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2
+            - 1).bfloat16()
+    mask = (torch.rand(b, 128, 128, 1, generator=g, device=dev) < 0.3).float()
+    w_vid = 0.999 * losses.mask_l2_weights(mask, 0.05)
+    if geometry == "video":
+        return fake, clip, w_vid
+    if geometry == "video_composite":
+        return masks.fill_in(clip, mask, fake), clip, w_vid
+    if geometry == "wholeim":
+        mask_full = (torch.rand(b, 128, 128, 12, generator=g, device=dev)
+                     < 0.3).float()
+        return fake, clip, 0.999 * losses.mask_l2_weights(mask_full, 0.05)
+    return (fake[..., :3].contiguous(), clip[..., :3].contiguous(),
+            torch.tensor(0.999, device=dev))
+
+
+REGIME_CASES = ["video", "video_composite", "wholeim", "logo"]
+
+
+def _check_against_plain(dev, pred, target, w):
     before = dict(fl.LAUNCHES)
     leaf = pred.clone().requires_grad_(True)
     loss = fl.fused_weighted_mse(leaf, target, w)
-    loss.backward(torch.tensor(1.3, device=cuda))
+    loss.backward(torch.tensor(1.3, device=dev))
     torch.cuda.synchronize()
     assert fl.LAUNCHES == {"fwd": before["fwd"] + 1,
                            "bwd": before["bwd"] + 1}
     ref = fl.weighted_mse_reference(pred, target, w)
     torch.testing.assert_close(loss.detach(), ref, rtol=1e-5, atol=0)
     ref_grad = fl.weighted_mse_grad_reference(pred, target, w,
-                                              torch.tensor(1.3, device=cuda))
-    assert leaf.grad.dtype == dtype
-    rtol = 1e-6 if dtype == torch.float32 else 2 ** -7
+                                              torch.tensor(1.3, device=dev))
+    assert leaf.grad.dtype == pred.dtype
+    rtol = 1e-6 if pred.dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(leaf.grad.float(), ref_grad.float(),
                                rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("shape,dtype,strided", CASES,
+                         ids=["center_f32", "center_bf16", "ragged_f32",
+                              "ragged_bf16"])
+def test_kernels_match_plain_version(cuda, shape, dtype, strided):
+    _check_against_plain(cuda, *_operands(cuda, shape, dtype, strided))
+
+
+@pytest.mark.parametrize("geometry", REGIME_CASES)
+def test_kernels_match_plain_version_on_the_regime_operands(cuda, geometry):
+    pred, target, w = _regime_operands(cuda, geometry)
+    if geometry == "video_composite":
+        assert pred.dtype == torch.float32
+    _check_against_plain(cuda, pred, target, w)
+    assert torch.equal(fl.launch_forward(pred, target, w),
+                       fl.launch_forward(pred, target, w))
 
 
 def test_forward_is_bitwise_repeatable(cuda):
@@ -92,18 +133,37 @@ def test_mixed_devices_raise(cuda):
         fl.fused_weighted_mse(pred, target, w.cpu())
 
 
-def test_tiny_step_on_the_card_matches_the_cpu(cuda):
+def _tiny_batch(regime):
+    rs = np.random.RandomState(3)
+
+    def images(c):
+        return torch.from_numpy(rs.rand(4, 128, 128, c).astype(np.float32)
+                                * 2 - 1)
+
+    if regime == "center":
+        return {"real": images(3)}
+    mask = torch.zeros(4, 128, 128, 1)
+    mask[:, 40:80, 30:90] = 1.0
+    return {"real": images(6), "mask": mask}
+
+
+@pytest.mark.parametrize("regime,extra", [
+    ("center", dict(overlapPred=4)),
+    ("video", dict(predLen=2, weight_nomask=0.05)),
+    ("video", dict(predLen=2, weight_nomask=0.0, wtgdl=0.1)),
+], ids=["center", "video", "video_composite_gdl"])
+def test_tiny_step_on_the_card_matches_the_cpu(cuda, regime, extra):
     from video_filler_tpu_torch.train import step as tstep
     kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
-              overlapPred=4, computeDtype="float32")
-    real = torch.from_numpy(np.random.RandomState(3).rand(
-        4, 128, 128, 3).astype(np.float32) * 2 - 1)
+              computeDtype="float32", **extra)
+    batch = _tiny_batch(regime)
     metrics = {}
     for dev in ("cpu", "cuda"):
         opt = Opt(device=dev, **kw)
-        state = tstep.init_train_state(opt, "center",
+        state = tstep.init_train_state(opt, regime,
                                        torch.Generator().manual_seed(5))
-        m = tstep.make_train_step(opt, "center")(state, {"real": real.to(dev)})
+        m = tstep.make_train_step(opt, regime)(
+            state, {k: v.to(dev) for k, v in batch.items()})
         metrics[dev] = {k: v.item() for k, v in m.items()}
     for k, v in metrics["cpu"].items():
         assert metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-6), k

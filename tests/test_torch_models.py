@@ -127,10 +127,44 @@ def test_reference_init_from_a_generator():
 
 
 @pytest.mark.parametrize("regime,kw,item", [
-    ("video", {}, "A.7"), ("logo", {}, "A.7"), ("wholeim", {}, "A.7"),
     ("video3d", {}, "A.13"), ("center", {"conditionAdv": True}, "A.8"),
     ("center", {"noiseGen": True}, "A.8"),
 ])
 def test_unported_regimes_and_options_raise(regime, kw, item):
     with pytest.raises(NotImplementedError, match=item):
         specs_for_regime(Opt(device="cpu", **kw), regime)
+
+
+# regime -> (G in, G out, mid width, D in) at predLen 4, ngf 64
+PORTED = {"video": (12, 12, 64, 12), "logo": (3, 3, 32, 3),
+          "wholeim": (108, 12, 64, 12)}
+
+
+@pytest.mark.parametrize("regime", list(PORTED))
+def test_ported_regimes_have_the_jax_specs(regime):
+    from video_filler_tpu.models import specs_for_regime as jax_specs
+    g, d = specs_for_regime(Opt(device="cpu", predLen=4), regime)
+    jg, jd = jax_specs(JaxOpt(predLen=4), regime)
+    nc_in, nc_out, mid, d_in = PORTED[regime]
+    assert (g.nc_in, g.nc_out, g.out_size, d.nc_in, d.in_size) == \
+        (nc_in, nc_out, 128, d_in, 128)
+    assert (g.mid_channels or g.ngf) == mid
+    for ours, ref in ((g, jg), (d, jd)):
+        for f in ("nc_in", "ndf", "in_size", "nc_out", "nef", "ngf",
+                  "n_bottleneck", "out_size", "mid_channels", "dtype"):
+            assert getattr(ours, f, None) == getattr(ref, f, None), f
+
+
+def test_entry_is_the_flagship_video_generator_in_eval_mode():
+    """``entry()`` mirrors ``__graft_entry__.entry()``: the 128-out video
+    generator at predLen 4, nBottleneck 4000, batch 8, bf16, eval mode."""
+    from video_filler_tpu_torch.entry import entry
+    gen, (x,) = entry("cpu")
+    assert x.shape == (8, 128, 128, 12) and x.device.type == "cpu"
+    assert not gen.training
+    assert not any(p.requires_grad for p in gen.parameters())
+    assert gen.enc.conv5.weight.shape == (4000, 512, 4, 4)
+    assert gen.dec.up5.weight.shape == (64, 12, 4, 4)
+    y = gen(x)
+    assert y.shape == (8, 128, 128, 12) and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y.float()).all())

@@ -231,10 +231,28 @@ def test_g_learning_rate_is_10x_when_wtl2_in_0_1(wtl2, g_over_d):
 
 @pytest.mark.parametrize("kw,item", [
     ({"gradAccum": 2}, "A.8"), ({"remat": 1}, "A.8"),
-    ({"adamMomentsBf16": True}, "A.8"), ({"wtgdl": 0.1}, "A.7"),
+    ({"adamMomentsBf16": True}, "A.8"),
     ({"conditionAdv": True}, "A.8"), ({"noiseGen": True}, "A.8"),
 ])
 def test_unported_step_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tstep.make_train_step(Opt(device="cpu", **dict(SMALL, **kw)),
                               "center")
+
+
+@pytest.mark.parametrize("kw", [{"wtgdl": 0.1},
+                                {"wtgdl": 0.1, "gdlTorchQuirk": True}],
+                         ids=["wtgdl", "gdl_quirk"])
+def test_gdl_options_run_on_the_center_step(jax_side, kw):
+    """The GDL term on the center regime, against the JAX step."""
+    jopt, state, _, reals = jax_side
+    jopt = jopt.replace(**kw)
+    _, metrics = jax.jit(jstep.make_train_step(jopt, "center"))(
+        state, {"real": jnp.asarray(reals[0])}, jax.random.PRNGKey(100))
+    opt, pstate = _port_state(state)
+    pmetrics = tstep.make_train_step(opt.replace(**kw), "center")(
+        pstate, {"real": torch.from_numpy(reals[0])})
+    assert pmetrics["errG_gdl"].item() > 0
+    for k in tstep.METRIC_KEYS:
+        np.testing.assert_allclose(pmetrics[k].item(), float(metrics[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)

@@ -1,0 +1,241 @@
+"""The video, logo and wholeim train steps of the port against the JAX
+package's fused step, from the same parameters on the same batch.
+
+The video step is held against the JAX step run with ``usePallasLoss=True``
+(the Pallas kernel in interpret mode on the CPU: at predLen 2 its gate
+passes, W*C = 768) and against the default path, at weight_nomask 0.05 and 0
+(the composite fake), with wtgdl and with gdlTorchQuirk; logo, wholeim and
+the withInit cascade once each.
+
+JAX's gradients come from its step: optax's first Adam update stores
+mu = (1 - beta1) * g, so g = mu / 0.5 exactly.
+
+Tolerances (tests/test_torch_step.py): metrics rtol 1e-4; gradients rtol
+2e-3 / atol 2e-5 and BN running statistics rtol 1e-3 / atol 1e-5;
+parameters after one Adam step atol 4.1e-3 (a first Adam step is about
+lr*sign(g), so a tiny gradient that flips sign moves a weight by 2*lr_G);
+the 5-step loss trajectory rtol 0.05.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from video_filler_tpu.config import Opt as JaxOpt
+from video_filler_tpu.models import build_for_regime as jax_build
+from video_filler_tpu.train import step as jstep
+from video_filler_tpu_torch.checkpoint import convert
+from video_filler_tpu_torch.config import Opt
+from video_filler_tpu_torch.data.synthetic import _texture
+from video_filler_tpu_torch.models import build_for_regime
+from video_filler_tpu_torch.train import step as tstep
+
+torch.set_num_threads(1)
+
+SMALL = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=2, predLen=2,
+             wtl2=0.999, weight_nomask=0.05, computeDtype="float32")
+# case -> (regime, options over SMALL, with_init)
+CASES = {
+    "video_pallas": ("video", dict(usePallasLoss=True), False),
+    "video": ("video", {}, False),
+    "video_composite": ("video", dict(weight_nomask=0.0), False),
+    "video_wtgdl": ("video", dict(wtgdl=0.1), False),
+    "video_gdl_quirk": ("video", dict(wtgdl=0.1, gdlTorchQuirk=True), False),
+    "logo": ("logo", {}, False),
+    "wholeim": ("wholeim", dict(predLen=1), False),
+    "video_withinit": ("video", dict(weight_nomask=0.0), True),
+}
+N_STEPS = 5
+
+
+def _batch(regime, seed, n=2):
+    """A step batch of n smooth textures (as the synthetic corpora hold)
+    with a block mask; numpy f32."""
+    rs = np.random.RandomState(seed)
+
+    def tex(c):
+        return np.stack([np.concatenate(
+            [_texture(rs, 128, 128) for _ in range(c // 3)], axis=-1)
+            for _ in range(n)]).astype(np.float32) / 127.5 - 1.0
+
+    mask = np.zeros((n, 128, 128, 1), np.float32)
+    mask[:, 40:80, 30:90] = 1.0
+    mask[1, 10:30, 60:120] = 1.0
+    if regime == "video":
+        return {"real": tex(6), "mask": mask}
+    if regime == "logo":
+        real = tex(3)
+        return {"masked": np.where(mask > 0, np.float32(-0.14), real),
+                "real": real}
+    # wholeim: a zero-mean patch-array input.  The smooth textures' offset
+    # reaches the BatchNorms as a mean large against the spread, where the
+    # JAX layers' one-pass variance E[x^2] - E[x]^2 loses f32 digits: there
+    # the JAX gradient, not the port's, strays from a float64 step.
+    return {"masked": rs.rand(n, 128, 128, 27).astype(np.float32) * 2 - 1,
+            "real": tex(12), "mask": np.repeat(mask, 12, axis=-1)}
+
+
+@pytest.fixture(scope="module")
+def cache():
+    """Jitted JAX steps and one-step results, shared by this module."""
+    return {}
+
+
+def _jax_case(cache, case):
+    """(opt, init state, jitted step, init_net) of a case."""
+    key = ("jax", case)
+    if key not in cache:
+        regime, kw, with_init = CASES[case]
+        jopt = JaxOpt(**{**SMALL, **kw})
+        state = jstep.init_train_state(jax.random.PRNGKey(0), jopt, regime)
+        step = jax.jit(jstep.make_train_step(jopt, regime,
+                                             with_init=with_init))
+        init_net = (jax_build(jopt, regime)[0].init(jax.random.PRNGKey(7))
+                    if with_init else None)
+        cache[key] = (jopt, state, step, init_net)
+    return cache[key]
+
+
+def _port(case, jax_state, init_net):
+    regime, kw, with_init = CASES[case]
+    opt = Opt(device="cpu", **{**SMALL, **kw})
+    state = tstep.init_train_state(opt, regime,
+                                   torch.Generator().manual_seed(0))
+    sd_g, sd_d = convert.from_jax(jax_state.params_g, jax_state.state_g,
+                                  jax_state.params_d, jax_state.state_d)
+    state.gen.load_state_dict(sd_g, strict=True)
+    state.disc.load_state_dict(sd_d, strict=True)
+    tinit = None
+    if with_init:
+        tinit = build_for_regime(opt, regime)[0]
+        tinit.load_state_dict(convert.tree_to_state_dict(*init_net))
+    return state, tstep.make_train_step(opt, regime, with_init=with_init), \
+        tinit
+
+
+def _jax_args(cache, case, batch, i):
+    init_net = _jax_case(cache, case)[3]
+    args = ({k: jnp.asarray(v) for k, v in batch.items()},
+            jax.random.PRNGKey(100 + i))
+    return args + ((init_net,) if init_net is not None else ())
+
+
+def _torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _allclose_trees(ours, ref, **tol):
+    la, ta = jax.tree.flatten(ours)
+    lb, tb = jax.tree.flatten(ref)
+    assert ta == tb
+    for a, b in zip(la, lb):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), **tol)
+
+
+def _one_step(cache, case):
+    """Both sides after one step on the case's first batch."""
+    key = ("one_step", case)
+    if key not in cache:
+        regime = CASES[case][0]
+        _, state, step, init_net = _jax_case(cache, case)
+        batch = _batch(regime, 1)
+        new_state, metrics = step(state, *_jax_args(cache, case, batch, 0))
+        pstate, pstep, tinit = _port(case, state, init_net)
+        pmetrics = pstep(pstate, _torch_batch(batch), tinit)
+        cache[key] = (new_state, metrics, pstate, pmetrics)
+    return cache[key]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_one_step_metrics_match(cache, case):
+    _, metrics, _, pmetrics = _one_step(cache, case)
+    assert set(pmetrics) == set(tstep.METRIC_KEYS)
+    for k in tstep.METRIC_KEYS:
+        np.testing.assert_allclose(pmetrics[k].item(), float(metrics[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+    if "gdl" in case:
+        assert pmetrics["errG_gdl"].item() > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_one_step_gradients_match(cache, case):
+    new_state, _, pstate, _ = _one_step(cache, case)
+    for module, opt_state in ((pstate.gen, new_state.opt_g),
+                              (pstate.disc, new_state.opt_d)):
+        ref = jax.tree.map(lambda m: np.asarray(m) / 0.5, opt_state[0].mu)
+        grads = {n: p.grad for n, p in module.named_parameters()}
+        _allclose_trees(convert.state_dict_to_tree(grads)[0], ref,
+                        rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_params_and_bn_stats_after_one_step_match(cache, case):
+    new_state, _, pstate, _ = _one_step(cache, case)
+    for module, params, bn in ((pstate.gen, new_state.params_g,
+                                new_state.state_g),
+                               (pstate.disc, new_state.params_d,
+                                new_state.state_d)):
+        ours_p, ours_s = convert.state_dict_to_tree(module.state_dict())
+        _allclose_trees(ours_p, params, atol=4.1e-3)
+        _allclose_trees(ours_s, bn, rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["video_pallas", "video"])
+def test_five_step_loss_trajectory_tracks(cache, case):
+    """At batch 8: at batch 2 the first Adam steps (about lr*sign(g)) turn
+    f32-sized gradient differences into weight differences that D's loss
+    on the fake amplifies past 5% by step 4."""
+    _, state, step, init_net = _jax_case(cache, case)
+    pstate, pstep, _ = _port(case, state, init_net)
+    for i in range(N_STEPS):
+        batch = _batch("video", 10 + i, n=8)
+        state, m = step(state, *_jax_args(cache, case, batch, i))
+        pm = pstep(pstate, _torch_batch(batch))
+        for k in ("errD", "errG_l2"):
+            np.testing.assert_allclose(pm[k].item(), float(m[k]), rtol=0.05,
+                                       err_msg=f"{k} step {i + 1}")
+    assert pstate.step == N_STEPS
+
+
+def test_pallas_and_default_jax_paths_agree(cache):
+    """The two JAX reconstruction paths compute one function, so one port
+    step is held against both."""
+    _, m_pallas, _, _ = _one_step(cache, "video_pallas")
+    _, m_default, _, _ = _one_step(cache, "video")
+    for k in tstep.METRIC_KEYS:
+        np.testing.assert_allclose(float(m_pallas[k]), float(m_default[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
+
+
+def test_reconstruction_term_gets_the_weights_at_their_broadcast_shape(
+        monkeypatch):
+    calls = []
+    real_fn = tstep.fused_weighted_mse
+
+    def recording(pred, target, weights):
+        calls.append((tuple(pred.shape), pred.dtype, tuple(weights.shape)))
+        return real_fn(pred, target, weights)
+
+    monkeypatch.setattr(tstep, "fused_weighted_mse", recording)
+    for case in ("video", "video_composite", "logo", "wholeim"):
+        regime, kw, _ = CASES[case]
+        opt = Opt(device="cpu",
+                  **{**SMALL, "computeDtype": "bfloat16", **kw})
+        state = tstep.init_train_state(opt, regime,
+                                       torch.Generator().manual_seed(2))
+        tstep.make_train_step(opt, regime)(state,
+                                           _torch_batch(_batch(regime, 3)))
+    assert calls == [
+        ((2, 128, 128, 6), torch.bfloat16, (2, 128, 128, 1)),
+        ((2, 128, 128, 6), torch.float32, (2, 128, 128, 1)),   # composite
+        ((2, 128, 128, 3), torch.bfloat16, ()),
+        ((2, 128, 128, 12), torch.bfloat16, (2, 128, 128, 12)),
+    ]
+
+
+def test_with_init_is_refused_outside_video():
+    with pytest.raises(ValueError, match="video"):
+        tstep.make_train_step(Opt(device="cpu", **SMALL), "logo",
+                              with_init=True)

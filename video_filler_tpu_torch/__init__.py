@@ -5,10 +5,12 @@ The JAX package stays the reference; this package mirrors its module names:
   config       the shared option table plus ``device``
   ops/         image, mask and loss ops, NN layers; ops/cuda holds the
                hand-written Hopper kernels (sources in csrc/)
-  models/      center-regime generator / discriminator
-  checkpoint/  JAX parameter trees <-> the port's state dicts
-  train/       the center GAN train step and the epoch driver + CLI
-  data/        folder index, host decode, sampler, prefetch, fixtures
+  models/      generators / discriminators of the 2-D regimes
+  checkpoint/  checkpoints in the JAX package's file format; JAX parameter
+               trees <-> the port's state dicts
+  train/       the GAN train step of every 2-D regime, the epoch driver + CLI
+  data/        indexes, host decode, samplers, prefetch, fixtures
+  entry.py     the flagship video generator, ready to call
 
 It imports torch and never jax.
 """

@@ -34,18 +34,33 @@ def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
-def _to_torch_weight(path, w: np.ndarray) -> np.ndarray:
+def to_torch_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
+    """A JAX parameter leaf at ``path`` in the port's layout (a view)."""
     if w.ndim != 4:
         return w
     return w.transpose(2, 3, 0, 1) if _is_transposed(path) \
         else w.transpose(3, 2, 0, 1)
 
 
-def _to_jax_weight(path, w: np.ndarray) -> np.ndarray:
+def to_jax_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
+    """Inverse of ``to_torch_layout`` (a view)."""
     if w.ndim != 4:
         return w
     return w.transpose(2, 3, 0, 1) if _is_transposed(path) \
         else w.transpose(2, 3, 1, 0)
+
+
+def jax_path(key: str, ndim: int) -> tuple[bool, tuple[str, ...]]:
+    """(True for a BN running statistic, the leaf's path in the JAX params
+    or state tree) for a state-dict key whose tensor has ``ndim`` dims."""
+    *scope, leaf = key.split(".")
+    if leaf in ("running_mean", "running_var"):
+        return True, (*scope, leaf[len("running_"):])
+    if leaf == "bias":
+        return False, (*scope, "beta")
+    if leaf == "weight":
+        return False, (*scope, "w" if ndim == 4 else "gamma")
+    raise KeyError(f"no JAX counterpart for state-dict key {key!r}")
 
 
 def tree_to_state_dict(params: dict, state: dict | None = None
@@ -54,7 +69,7 @@ def tree_to_state_dict(params: dict, state: dict | None = None
     sd = {}
     for path, leaf in _flatten(params):
         name = _PARAM_LEAF[path[-1]]
-        arr = _to_torch_weight(path, np.asarray(leaf))
+        arr = to_torch_layout(path, np.asarray(leaf))
         sd[".".join(path[:-1] + (name,))] = torch.tensor(
             arr, dtype=torch.float32)
     for path, leaf in _flatten(state or {}):
@@ -67,24 +82,17 @@ def tree_to_state_dict(params: dict, state: dict | None = None
 def state_dict_to_tree(sd: dict[str, torch.Tensor]) -> tuple[dict, dict]:
     """Inverse of ``tree_to_state_dict``: (params, state) nested numpy dicts.
     Also maps a dict of parameter gradients keyed like the parameters."""
-    inv_param = {"weight": None, "bias": "beta"}
     params: dict = {}
     state: dict = {}
     for key, t in sd.items():
-        *scope, leaf = key.split(".")
         arr = t.detach().float().cpu().numpy()
-        if leaf in ("running_mean", "running_var"):
-            tree, jleaf = state, leaf[len("running_"):]
-        elif leaf in inv_param:
-            tree = params
-            jleaf = inv_param[leaf] or ("w" if arr.ndim == 4 else "gamma")
-            arr = _to_jax_weight(tuple(scope) + (jleaf,), arr)
-        else:
-            raise KeyError(f"no JAX counterpart for state-dict key {key!r}")
-        node = tree
-        for s in scope:
+        is_state, path = jax_path(key, arr.ndim)
+        if not is_state:
+            arr = to_jax_layout(path, arr)
+        node = state if is_state else params
+        for s in path[:-1]:
             node = node.setdefault(s, {})
-        node[jleaf] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.ascontiguousarray(arr)
     return params, state
 
 

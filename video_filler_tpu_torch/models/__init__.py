@@ -14,7 +14,7 @@ from video_filler_tpu_torch.models.context_encoder import (  # noqa: F401
 def build_for_regime(opt, regime: str, gen: torch.Generator | None = None
                      ) -> tuple[Generator, Discriminator]:
     """(generator, discriminator) for a regime, on the CPU, initialised from
-    ``gen`` (G's weights drawn first, then D's).  Center only."""
+    ``gen`` (G's weights drawn first, then D's)."""
     gspec, dspec = specs_for_regime(opt, regime)
     gen = gen or torch.Generator().manual_seed(0)
     return build_generator(gspec, gen), build_discriminator(dspec, gen)

@@ -1,8 +1,13 @@
-"""Context-encoder generator and discriminator for the center regime
+"""Context-encoder generators and discriminators for the 2-D regimes
 (counterpart of video_filler_tpu/models/context_encoder.py).
 
-* encoder ladder + 64-out decoder:  train.lua:87-148
-* 64-in discriminator:              train.lua:181-199
+* encoder ladder + 64-out decoder:      train.lua:87-148
+* 128-out video decoder (ngf mid):      train_vid_weighted.lua:171-176
+* 128-out logo decoder (ngf/2 mid):     train_logo_withmask.lua:154-158
+* wholeim in/out widths:                train_wholeim_input.lua:118-119
+* 64-in discriminator:                  train.lua:181-199
+* 128-in discriminator (no BN on the
+  two leading convs):                   train_vid_weighted.lua:216-227
 
 The models take and return (B,H,W,C) tensors, the JAX package's layout;
 inside they run NCHW with channels-last memory.  Discriminators return
@@ -36,6 +41,9 @@ class GeneratorSpec:
     nef: int = 64
     ngf: int = 64
     n_bottleneck: int = 4000
+    out_size: int = 128              # 64 (center) or 128 (video/logo/wholeim)
+    mid_channels: int | None = None  # 64->128 stage width; None = ngf (video),
+                                     # logo uses ngf//2
     dtype: str = "bfloat16"
 
     @property
@@ -47,6 +55,7 @@ class GeneratorSpec:
 class DiscriminatorSpec:
     nc_in: int
     ndf: int = 64
+    in_size: int = 64                # 64 (center) or 128 (full-image D)
     dtype: str = "bfloat16"
 
     @property
@@ -58,9 +67,23 @@ def _lrelu():
     return nn.LeakyReLU(0.2)
 
 
+def _decoder_tail(spec: GeneratorSpec, dt: torch.dtype) -> dict:
+    """The decoder after its 32x32 stage: one up-conv to nc_out at 64 out;
+    at 128 out a mid stage (up4/bn4/relu4, width ngf or ngf//2) first."""
+    ngf = spec.ngf
+    if spec.out_size == 64:
+        return {"up4": ConvTranspose2d(ngf, spec.nc_out, 4, 2, 1, dt)}
+    if spec.out_size == 128:
+        mid = spec.mid_channels if spec.mid_channels is not None else ngf
+        return {"up4": ConvTranspose2d(ngf, mid, 4, 2, 1, dt),
+                "bn4": BatchNorm(mid), "relu4": nn.ReLU(),
+                "up5": ConvTranspose2d(mid, spec.nc_out, 4, 2, 1, dt)}
+    raise ValueError(f"out_size must be 64 or 128, got {spec.out_size}")
+
+
 class Generator(nn.Module):
     """Encoder -> BN + LeakyReLU bottleneck -> transposed-conv decoder ->
-    Tanh; 64x64 out (the 128-out decoders come with ROADMAP A.7)."""
+    Tanh; 64x64 or 128x128 out."""
 
     def __init__(self, spec: GeneratorSpec):
         super().__init__()
@@ -89,13 +112,13 @@ class Generator(nn.Module):
             "bn2": BatchNorm(ngf * 2), "relu2": nn.ReLU(),
             "up3": ConvTranspose2d(ngf * 2, ngf, 4, 2, 1, dt),
             "bn3": BatchNorm(ngf), "relu3": nn.ReLU(),
-            "up4": ConvTranspose2d(ngf, spec.nc_out, 4, 2, 1, dt),
+            **_decoder_tail(spec, dt),
             "tanh": nn.Tanh(),
         })
 
     def forward(self, x: torch.Tensor, update_stats: bool = True):
-        """x: (B,H,W,nc_in) in [-1,1] -> (B,64,64,nc_out) in the compute
-        dtype.  In train mode BN uses batch statistics and, when
+        """x: (B,H,W,nc_in) in [-1,1] -> (B,S,S,nc_out), S = out_size, in
+        the compute dtype.  In train mode BN uses batch statistics and, when
         ``update_stats``, updates the running ones."""
         h = self.enc(x.permute(0, 3, 1, 2), update_stats)
         h = self.bott_act(self.bott_bn(h, update_stats))
@@ -103,13 +126,24 @@ class Generator(nn.Module):
 
 
 class Discriminator(Sequential):
-    """64-in patch discriminator: conv head, three conv+BN stages, a 4x4
-    valid conv to one logit per sample."""
+    """Patch discriminator: a BN-free conv head (one conv at 64 in; at 128 in
+    conv0 to ndf/2 then conv1 to ndf), three conv+BN stages, a 4x4 valid
+    conv to one logit per sample."""
 
     def __init__(self, spec: DiscriminatorSpec):
         ndf, dt = spec.ndf, spec.compute_dtype
+        if spec.in_size == 64:
+            head = {"conv1": Conv2d(spec.nc_in, ndf, 4, 2, 1, dt),
+                    "lrelu1": _lrelu()}
+        elif spec.in_size == 128:
+            head = {"conv0": Conv2d(spec.nc_in, ndf // 2, 4, 2, 1, dt),
+                    "lrelu0": _lrelu(),
+                    "conv1": Conv2d(ndf // 2, ndf, 4, 2, 1, dt),
+                    "lrelu1": _lrelu()}
+        else:
+            raise ValueError(f"in_size must be 64 or 128, got {spec.in_size}")
         super().__init__({
-            "conv1": Conv2d(spec.nc_in, ndf, 4, 2, 1, dt), "lrelu1": _lrelu(),
+            **head,
             "conv2": Conv2d(ndf, ndf * 2, 4, 2, 1, dt),
             "bn2": BatchNorm(ndf * 2), "lrelu2": _lrelu(),
             "conv3": Conv2d(ndf * 2, ndf * 4, 4, 2, 1, dt),
@@ -120,7 +154,7 @@ class Discriminator(Sequential):
         })
 
     def forward(self, x: torch.Tensor, update_stats: bool = True):
-        """x: (B,64,64,nc_in) -> logits (B,)."""
+        """x: (B,S,S,nc_in), S = in_size -> logits (B,)."""
         y = super().forward(x.permute(0, 3, 1, 2), update_stats)
         return y.reshape(y.shape[0])
 
@@ -142,14 +176,16 @@ def build_discriminator(spec: DiscriminatorSpec,
 
 def specs_for_regime(opt: Opt, regime: str
                      ) -> tuple[GeneratorSpec, DiscriminatorSpec]:
-    """(GeneratorSpec, DiscriminatorSpec) for a regime; center only."""
-    if regime in ("video", "logo", "wholeim"):
-        raise NotImplementedError(
-            f"regime={regime!r} is not ported yet (ROADMAP A.7)")
+    """(GeneratorSpec, DiscriminatorSpec) for a 2-D regime, mirroring the
+    reference trainers:
+      center  -> train.lua            (64-out G, 64-in D)
+      video   -> train_vid_weighted   (nc*predLen channels, 128 out/in)
+      logo    -> train_logo_withmask  (128 out with an ngf//2 mid stage)
+      wholeim -> train_wholeim_input  (patch-array in, 2x2 patches out)"""
     if regime == "video3d":
         raise NotImplementedError(
             "regime='video3d' is not ported yet (ROADMAP A.13)")
-    if regime != "center":
+    if regime not in ("center", "video", "logo", "wholeim"):
         raise ValueError(f"unknown regime {regime!r}")
     if opt.conditionAdv or opt.noiseGen:
         raise NotImplementedError(
@@ -157,7 +193,23 @@ def specs_for_regime(opt: Opt, regime: str
     if opt.useBias:
         raise NotImplementedError(
             "useBias is not ported yet (ROADMAP A.8)")
-    g = GeneratorSpec(nc_in=opt.nc, nc_out=opt.nc, nef=opt.nef, ngf=opt.ngf,
-                      n_bottleneck=opt.nBottleneck, dtype=opt.computeDtype)
-    d = DiscriminatorSpec(nc_in=opt.nc, ndf=opt.ndf, dtype=opt.computeDtype)
+    common = dict(nef=opt.nef, ngf=opt.ngf, n_bottleneck=opt.nBottleneck,
+                  dtype=opt.computeDtype)
+    dcommon = dict(ndf=opt.ndf, dtype=opt.computeDtype)
+    if regime == "center":
+        g = GeneratorSpec(nc_in=opt.nc, nc_out=opt.nc, out_size=64, **common)
+        d = DiscriminatorSpec(nc_in=opt.nc, in_size=64, **dcommon)
+    elif regime == "video":
+        nc = opt.nc_total
+        g = GeneratorSpec(nc_in=nc, nc_out=nc, out_size=128, **common)
+        d = DiscriminatorSpec(nc_in=nc, in_size=128, **dcommon)
+    elif regime == "logo":
+        g = GeneratorSpec(nc_in=opt.nc, nc_out=opt.nc, out_size=128,
+                          mid_channels=opt.ngf // 2, **common)
+        d = DiscriminatorSpec(nc_in=opt.nc, in_size=128, **dcommon)
+    else:  # wholeim
+        g = GeneratorSpec(nc_in=opt.nc_wholeim_in, nc_out=opt.nc_wholeim_out,
+                          out_size=128, **common)
+        d = DiscriminatorSpec(nc_in=opt.nc_wholeim_out, in_size=128,
+                              **dcommon)
     return g, d

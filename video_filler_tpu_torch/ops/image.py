@@ -1,7 +1,8 @@
 """On-device image preprocessing (counterpart of video_filler_tpu/ops/image.py).
 
 The host pipeline decodes and crops; normalisation, the per-sample crop and
-the horizontal flip run on the device, on (B,H,W,C) tensors.  Random
+the horizontal flip run on the device, on (B,H,W,C) tensors (a folded clip
+keeps its frame-major channels on the last axis).  Random
 decisions are drawn by the caller from a ``torch.Generator`` and passed in,
 so a test can hand over the JAX side's decisions.
 """
@@ -50,8 +51,17 @@ def draw_flips(gen: torch.Generator, batch: int,
     return torch.rand(batch, generator=gen) < prob
 
 
-def random_hflip(images: torch.Tensor, flip: torch.Tensor) -> torch.Tensor:
-    """Flip the samples where ``flip`` is set along W (axis 2, NHWC)."""
-    sel = flip.to(images.device).reshape((images.shape[0],)
-                                         + (1,) * (images.ndim - 1))
-    return torch.where(sel, images.flip(2), images)
+def random_hflip(images: torch.Tensor, flip: torch.Tensor,
+                 *companions: torch.Tensor):
+    """Flip the samples where ``flip`` is set along W (axis 2, NHWC), and
+    each companion tensor with the same decisions (gt, masked and mask flip
+    together, datavid/donkey_folder.lua:174-180).  Returns one tensor, or a
+    tuple when companions are given."""
+    flip = flip.to(images.device)
+
+    def apply(x):
+        sel = flip.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(sel, x.flip(2), x)
+
+    out = tuple(apply(x) for x in (images, *companions))
+    return out if companions else out[0]

@@ -8,24 +8,41 @@ formula), and run through the train step.  Metrics go to stdout and JSONL in
 the reference format (utils/logger.py of the JAX package), one step late so
 that reading them does not stall the device; display grids go to PNGs.
 
+Checkpoints are the JAX package's files (checkpoint/ckpt.py): saved every
+``checkpointEvery`` epochs (pruned to ``keepCheckpoints`` before each save,
+written on a background thread), on SIGTERM at the next step boundary, and
+restored by ``autoResume`` or ``loadName``+``loadIter``.  ``withInit`` with
+``initName`` runs a checkpoint's generator ahead of G (video only).
+
 CLI (env-var names match the reference; see config.py):
-    python -m video_filler_tpu_torch.train regime=center DATA_ROOT=/data \\
-        device=cuda batchSize=64 wtl2=0.999 overlapPred=4 checkpointEvery=100
+    python -m video_filler_tpu_torch.train regime=video DATA_ROOT=/data \\
+        device=cuda batchSize=64 wtl2=0.999 weight_nomask=0.05 \\
+        maskName=maskppp.png predLen=4 nBottleneck=4000
 
 Options the port does not run yet exit with the ROADMAP item that brings
-them (``unsupported_options``); that includes checkpoints, so a run needs
-``checkpointEvery`` above ``niter``.
+them (``unsupported_options``).
 """
 
 from __future__ import annotations
 
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 
 from video_filler_tpu.utils import MetricsLogger, save_image_grid
+from video_filler_tpu_torch.checkpoint import (
+    checkpoint_path,
+    prune_checkpoints,
+    restore_checkpoint,
+    restore_latest,
+    restore_subtree,
+    save_checkpoint,
+    wait_pending_saves,
+)
 from video_filler_tpu_torch.config import (
     REGIMES,
     Opt,
@@ -34,7 +51,7 @@ from video_filler_tpu_torch.config import (
     split_regime,
 )
 from video_filler_tpu_torch.data.pipeline import DataLoader, make_sampler
-from video_filler_tpu_torch.models import specs_for_regime
+from video_filler_tpu_torch.models import build_generator, specs_for_regime
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.train.step import (
     init_train_state,
@@ -50,15 +67,12 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
     out = []
     try:
         specs_for_regime(opt, regime)
-    except NotImplementedError as e:  # regime, conditionAdv, noiseGen, ...
+    except NotImplementedError as e:  # video3d, conditionAdv, noiseGen, ...
         out.append(str(e))
     checks = (
         (opt.dataDevice, "dataDevice (ROADMAP A.10)"),
         (opt.seqParallel > 1 or opt.modelParallel > 1 or opt.dataParallel > 1,
          "seqParallel/modelParallel/dataParallel>1 (ROADMAP A.14)"),
-        (opt.withInit, "withInit (ROADMAP A.7)"),
-        (opt.autoResume, "autoResume (ROADMAP A.6)"),
-        (opt.loadName, "loadName (ROADMAP A.6)"),
         (opt.evalEvery > 0, "evalEvery (ROADMAP A.9)"),
         (opt.keepBest, "keepBest (ROADMAP A.9)"),
         (opt.displayServer, "displayServer (ROADMAP A.9)"),
@@ -66,19 +80,38 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
     )
     out += [f"{what} is not ported yet" for bad, what in checks if bad]
     out += unsupported_step_options(opt)
-    if opt.checkpointEvery <= opt.niter:
-        out.append(f"checkpoints are not ported yet (ROADMAP A.6): set "
-                   f"checkpointEvery above niter ({opt.niter})")
     return out
 
 
-def _display_dump(opt: Opt, batch, fake, out_dir: str, epoch: int,
-                  step: int) -> None:
+def step_seed(seed: int, global_step: int) -> int:
+    """The per-step seed of the preprocess decisions: a function of the
+    run's seed and the global step, so a resumed run continues the
+    uninterrupted run's sequence (the JAX loop's formula, loop.py:582)."""
+    return (seed * 1_000_003 + global_step) % 2**31
+
+
+def generator_input(opt: Opt, regime: str, batch) -> torch.Tensor:
+    """G's input for a preprocessed batch: the center-filled image, the
+    logo-masked clip, or the regime's own masked input."""
+    if "masked" in batch:
+        return batch["masked"]
+    if regime == "center":
+        return masks.center_mask_fill(batch["real"], opt.overlapPred)
+    return masks.apply_logo_mask(batch["real"], batch["mask"], opt.maskValue)
+
+
+def _display_dump(opt: Opt, regime: str, batch, fake, out_dir: str,
+                  epoch: int, step: int) -> None:
     """PNG grids of fake / real / composited (train.lua:427-445 analogue)."""
     tag = f"{opt.name}_e{epoch}_s{step}"
     real = batch["real"]
-    comp = masks.paste_center(masks.center_mask_fill(real, opt.overlapPred),
-                              fake, opt.overlapPred)
+    if regime == "center":
+        ctx = masks.center_mask_fill(real, opt.overlapPred)
+        comp = masks.paste_center(ctx, fake, opt.overlapPred)
+    elif "mask" in batch:
+        comp = masks.fill_in(real, batch["mask"], fake)
+    else:
+        comp = fake
     nc = opt.nc
     for suffix, img in (("fake", fake), ("real", real), ("inpaint", comp)):
         save_image_grid(f"{out_dir}/{tag}_{suffix}.png",
@@ -93,19 +126,53 @@ def train(opt: Opt, regime: str):
     bad = unsupported_options(opt, regime)
     if bad:
         raise SystemExit("; ".join(bad))
+    with_init = bool(opt.withInit and opt.initName)
+    if with_init and regime != "video":
+        raise SystemExit(f"withInit requires regime=video, not {regime!r}")
     device = resolve_device(opt)
     seed = opt.manualSeed or int(np.random.randint(1, 10000))
     print(f"Seed: {seed}")
     sampler, ds_size = make_sampler(opt, regime)
     state = init_train_state(opt, regime, torch.Generator().manual_seed(seed))
+
+    start_epoch = 1
+    if opt.autoResume:
+        # Restart from wherever the last run checkpointed (the reference's
+        # only recovery is manual loadName/loadIter,
+        # train_vid_weighted.lua:242-257).
+        found = restore_latest(opt.checkpointDir, opt.name, state)
+        if found is not None:
+            start_epoch = found[1] + 1
+            print(f"auto-resumed {opt.name} at epoch {found[1]}")
+    elif opt.loadName and opt.loadIter:
+        path = checkpoint_path(opt.checkpointDir, opt.loadName, opt.loadIter)
+        restore_checkpoint(path, state)
+        start_epoch = opt.loadIter + 1
+        print(f"Resumed {path} at epoch {opt.loadIter}")
+
+    init_net = None
+    if with_init:
+        # The initializer cascade: a pre-trained generator run ahead of G
+        # (train_mycrit.lua:261-265,402-405).  G only: the file's D and
+        # optimizer shapes need not match this run's.
+        init_net = restore_subtree(
+            opt.initName, build_generator(specs_for_regime(opt, regime)[0],
+                                          torch.Generator().manual_seed(0)))
+        init_net = init_net.to(device).eval().requires_grad_(False)
+
     if device.type == "cuda":
         # Shapes are fixed across steps: let cuDNN time its algorithms once.
         torch.backends.cudnn.benchmark = True
     preprocess = make_preprocess(opt, regime)
-    step_fn = make_train_step(opt, regime)
+    step_fn = make_train_step(opt, regime, with_init=with_init)
     display_gen = torch.Generator().manual_seed(seed + 1)
 
-    loader = DataLoader(sampler, opt.nThreads, seed=seed,
+    # Resume continuity: the restored global step is folded into both
+    # random streams.  The step seeds continue the interrupted run's; the
+    # loader, whose stream cannot be fast-forwarded, draws a fresh one
+    # rather than replaying the run's first batches (JAX loop.py:283-338).
+    step0 = state.step
+    loader = DataLoader(sampler, opt.nThreads, seed=seed + 104729 * step0,
                         prefetch_depth=opt.prefetchDepth)
     logger = MetricsLogger(opt.name)
     ntrain = min(ds_size, opt.ntrain)
@@ -114,7 +181,8 @@ def train(opt: Opt, regime: str):
     pending_log = None
 
     def to_device(host_batch):
-        return {"raw": torch.from_numpy(host_batch["raw"]).to(device)}
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in host_batch.items()}
 
     def flush_log():
         nonlocal pending_log
@@ -127,43 +195,92 @@ def train(opt: Opt, regime: str):
             bad = [k for k, v in host.items() if not np.isfinite(v)]
             if bad:
                 raise RuntimeError(
-                    f"non-finite loss {bad} at epoch {epoch_} step {step_} — "
-                    f"training diverged (lower lr, or set haltOnNonFinite=0 "
-                    f"to push through)")
+                    f"non-finite loss {bad} at epoch {epoch_} step {step_} "
+                    f"— training diverged (resume from the last checkpoint "
+                    f"in {opt.checkpointDir!r} with a lower lr, or set "
+                    f"haltOnNonFinite=0 to push through)")
         logger.log_step(epoch_, step_, total, host, t_step, t_data)
 
+    # SIGTERM (preemption): finish the step in flight, checkpoint, exit
+    # cleanly.  The handler only sets a flag; the work happens at the next
+    # step boundary on the main thread.
+    preempted = threading.Event()
+    old_sigterm = None
+    if threading.current_thread() is threading.main_thread():
+        old_sigterm = signal.signal(signal.SIGTERM,
+                                    lambda signum, frame: preempted.set())
+
     try:
-        for epoch in range(1, opt.niter + 1):
+        for epoch in range(start_epoch, opt.niter + 1):
             t_epoch = time.perf_counter()
             for step in range(steps_per_epoch):
                 t0 = time.perf_counter()
                 host_batch = loader.get_batch()
                 t_data = time.perf_counter() - t0
-                step_seed = (seed * 1_000_003 + done) % 2**31
-                batch = preprocess(to_device(host_batch),
-                                   torch.Generator().manual_seed(step_seed))
-                metrics = step_fn(state, batch)
+                gen = torch.Generator().manual_seed(
+                    step_seed(seed, step0 + done))
+                batch = preprocess(to_device(host_batch), gen)
+                metrics = step_fn(state, batch, init_net)
                 if opt.display and (step + 1) % opt.display_iter == 0:
                     # The reference runs an extra batch through G every
                     # display_iter steps (train.lua:427-445).
                     shown = preprocess(to_device(loader.get_batch()),
                                        display_gen)
-                    ctx = masks.center_mask_fill(shown["real"],
-                                                 opt.overlapPred)
+                    g_in = generator_input(opt, regime, shown)
                     with torch.no_grad():
-                        fake = state.gen.eval()(ctx)
-                    _display_dump(opt, shown, fake, "display", epoch,
+                        if init_net is not None:
+                            g_in = masks.fill_in(g_in, shown["mask"],
+                                                 init_net(g_in))
+                        fake = state.gen.eval()(g_in)
+                    _display_dump(opt, regime, shown, fake, "display", epoch,
                                   step + 1)
                 flush_log()
                 if step % opt.logEvery == 0:
                     pending_log = (epoch, step, steps_per_epoch, metrics,
                                    time.perf_counter() - t0, t_data)
                 done += 1
+                if preempted.is_set():
+                    # Saved under the interrupted epoch: resume skips its
+                    # remainder, which the random samplers make benign.
+                    flush_log()
+                    prune_checkpoints(opt.checkpointDir, opt.name,
+                                      opt.keepCheckpoints)
+                    p = save_checkpoint(
+                        opt.checkpointDir, opt.name, epoch, state,
+                        meta={"epoch": epoch, "regime": regime, "seed": seed,
+                              "preempted_at_step": step0 + done})
+                    print(f"SIGTERM: checkpointed {p} at epoch {epoch} "
+                          f"step {done}; exiting cleanly")
+                    return state
             flush_log()
             logger.log_epoch(epoch, opt.niter, time.perf_counter() - t_epoch)
+            if epoch % opt.checkpointEvery == 0:
+                # Prune BEFORE saving: `keep` finished checkpoints stay on
+                # disk even if the incoming async write fails.
+                prune_checkpoints(opt.checkpointDir, opt.name,
+                                  opt.keepCheckpoints)
+                p = save_checkpoint(opt.checkpointDir, opt.name, epoch, state,
+                                    meta={"epoch": epoch, "regime": regime,
+                                          "seed": seed},
+                                    async_write=True)
+                print(f"checkpoint: {p}")
     finally:
-        loader.close()
-        logger.close()
+        # A failure in this teardown (a failed async write, divergence
+        # caught at the last flush) is raised after it, and never in place
+        # of an exception already on its way out of the loop.
+        propagating = sys.exc_info()[0] is not None
+        deferred = None
+        for cleanup in (flush_log, loader.close, logger.close,
+                        wait_pending_saves):
+            try:
+                cleanup()
+            except Exception as e:  # noqa: BLE001 -- re-raised below
+                if not propagating and deferred is None:
+                    deferred = e
+        if old_sigterm is not None:
+            signal.signal(signal.SIGTERM, old_sigterm)
+        if deferred is not None:
+            raise deferred
     return state
 
 

@@ -1,7 +1,7 @@
-"""The center-regime GAN train step (counterpart of
-video_filler_tpu/train/step.py).
+"""The GAN train step of the 2-D regimes (counterpart of
+video_filler_tpu/train/step.py): center, video, logo and wholeim.
 
-One step: a G forward, D on the real center and on the detached fake (BN
+One step: a G forward, D on the real input and on the detached fake (BN
 running statistics updated in that order), D on the fake again for G's
 adversarial term, then both gradients at the current weights and two Adam
 updates -- the simultaneous form of the reference's fDx/fGx closures
@@ -10,9 +10,22 @@ updates -- the simultaneous form of the reference's fDx/fGx closures
 The step runs eagerly and updates the ``TrainState`` in place: the networks'
 weights and BN buffers and the optimizers' moments.
 
-* G's reconstruction term is the ring-weighted MSE (train.lua:389-400),
-  computed by the fused CUDA kernel (ops/cuda/fused_loss.py) on every step;
-  ``usePallasLoss`` has no effect here.  ``errG_l2`` is logged unweighted.
+* G's reconstruction term is ``sum(w * (d_fake - target)**2) / N``,
+  computed by the fused CUDA kernel (ops/cuda/fused_loss.py) on every step
+  of every regime; ``usePallasLoss`` has no effect here.  The weights keep
+  their broadcast shape: the (1,H,W,1) overlap ring (center), wtl2 times the
+  (B,H,W,1) mask blend (video) or the full-size one (wholeim), a 0-dim wtl2
+  (logo).  ``errG_l2`` is logged unweighted.
+* Composite fake (video, wholeim): when ``weight_nomask == 0``, or
+  ``compositeLtOne`` and it is < 1, D and the loss see the target with only
+  the masked pixels taken from G (train_vid_weighted.lua:429-434,
+  train_mycrit.lua:431-437).  ``torch.where`` of a bf16 fake into the f32
+  target promotes to f32, as ``jnp.where`` does.
+* ``wtgdl`` adds the gradient-difference loss; ``gdlTorchQuirk`` logs its
+  value but applies the MSE gradient (train_vid_weighted.lua:524-525).
+* ``withInit`` (video only): a pre-trained generator, in eval mode and
+  without gradients, fills its prediction into the masked context before G
+  runs (train_mycrit.lua:402-405).
 * D's parameters get only ``loss_d`` (the fake is detached); G's get only
   ``loss_g``, through the third D pass whose running statistics are not
   updated.  ``backward(inputs=...)`` keeps each loss off the other net.
@@ -61,8 +74,6 @@ def unsupported_step_options(opt: Opt) -> list[str]:
         out.append("remat is not ported yet (ROADMAP A.8)")
     if opt.adamMomentsBf16:
         out.append("adamMomentsBf16 is not ported yet (ROADMAP A.8)")
-    if opt.wtgdl != 0.0:
-        out.append("wtgdl (the GDL term) is not ported yet (ROADMAP A.7)")
     return out
 
 
@@ -85,38 +96,72 @@ def init_train_state(opt: Opt, regime: str,
     return TrainState(g, d, opt_g, opt_d)
 
 
-def make_train_step(opt: Opt, regime: str):
-    """Build ``step(state, batch) -> metrics`` for the center regime.
+def make_train_step(opt: Opt, regime: str, with_init: bool = False):
+    """Build ``step(state, batch, init_net=None) -> metrics`` for a regime.
 
-    batch: {'real': (B, fineSize, fineSize, nc) f32 in [-1,1]} on the
-    state's device.  metrics: 0-dim f32 tensors on that device, keyed
-    ``METRIC_KEYS``; reading them is the caller's choice of sync point."""
+    batch (on the state's device, NHWC float in [-1,1] unless noted):
+      center : {'real': (B,fs,fs,nc)}
+      video  : {'real': (B,fs,fs,nc*predLen), 'mask': (B,fs,fs,1) {0,1}}
+      logo   : {'real': gt, 'masked': masked input}
+      wholeim: {'real': (B,fs,fs,nc*4) target patches, 'mask': same-shape
+                {0,1}, 'masked': (B,fs,fs,nc*arrh*arrw) input patch array}
+    ``init_net`` (with_init only): the initializer Generator.  metrics: 0-dim
+    f32 tensors on the device, keyed ``METRIC_KEYS``; reading them is the
+    caller's choice of sync point."""
     specs_for_regime(opt, regime)  # raises on what is not ported yet
     bad = unsupported_step_options(opt)
     if bad:
         raise NotImplementedError("; ".join(bad))
+    if with_init and regime != "video":
+        # The cascade composites netI's prediction inside the mask
+        # (train_mycrit.lua:402-405); only the video trainers define it.
+        raise ValueError(
+            f"withInit requires the video regime, not {regime!r}")
     device = resolve_device(opt)
     wtl2 = float(opt.wtl2)
     adv_coef = (1.0 - wtl2) if 0.0 < wtl2 < 1.0 else 1.0
-    half = opt.fineSize // 2
-    if opt.overlapPred > 0:
-        l2_w = losses.overlap_l2_weights((half, half), opt.overlapPred, wtl2,
+    lam = float(opt.weight_nomask)
+    wtl2_t = torch.tensor(wtl2, dtype=torch.float32, device=device)
+    composite = regime in ("video", "wholeim") and (
+        lam == 0.0 or (opt.compositeLtOne and lam < 1.0))
+    if regime == "center" and opt.overlapPred > 0:
+        half = opt.fineSize // 2
+        ring = losses.overlap_l2_weights((half, half), opt.overlapPred, wtl2,
                                          device=device)[None]
-    else:
-        l2_w = torch.tensor(wtl2, dtype=torch.float32, device=device)
     zero = torch.zeros((), dtype=torch.float32, device=device)
 
-    def step(state: TrainState, batch) -> dict[str, torch.Tensor]:
+    def prepare(batch):
+        """(ctx, d_real, target, l2 weights, mask) for the regime."""
+        if regime == "center":
+            real = batch["real"]
+            target = masks.extract_center(real)
+            ctx = masks.center_mask_fill(real, opt.overlapPred)
+            w = ring if opt.overlapPred > 0 else wtl2_t
+            return ctx, target, target, w, None
         real = batch["real"]
-        target = masks.extract_center(real)
-        ctx = masks.center_mask_fill(real, opt.overlapPred)
+        if regime == "logo":
+            return batch["masked"], real, real, wtl2_t, None
+        mask = batch["mask"]                                # video, wholeim
+        ctx = (masks.apply_logo_mask(real, mask, opt.maskValue)
+               if regime == "video" else batch["masked"])
+        w = wtl2_t * losses.mask_l2_weights(mask.float(), lam)
+        return ctx, real, real, w, mask
+
+    def step(state: TrainState, batch, init_net: Generator | None = None
+             ) -> dict[str, torch.Tensor]:
+        ctx, d_real, target, l2_w, mask = prepare(batch)
+        if with_init:
+            with torch.no_grad():
+                fake_init = init_net.eval()(ctx)
+            ctx = masks.fill_in(ctx, mask, fake_init)
         gen, disc = state.gen.train(), state.disc.train()
 
         fake = gen(ctx)
+        d_fake = masks.fill_in(target, mask, fake) if composite else fake
         # D loss: real pass then fake pass, BN statistics updated in that
         # order (train.lua:299-345); the fake is detached.
-        logit_real = disc(target)
-        logit_fake = disc(fake.detach())
+        logit_real = disc(d_real)
+        logit_fake = disc(d_fake.detach())
         err_d_real = losses.bce_with_logits(logit_real, 1.0)
         err_d_fake = losses.bce_with_logits(logit_fake, 0.0)
         loss_d = err_d_real + err_d_fake
@@ -124,12 +169,24 @@ def make_train_step(opt: Opt, regime: str):
         # G adversarial term: D again on the fake, batch statistics, running
         # statistics untouched (the reference reuses fDx's output,
         # train.lua:365).
-        err_g = losses.bce_with_logits(disc(fake, update_stats=False), 1.0)
+        err_g = losses.bce_with_logits(disc(d_fake, update_stats=False), 1.0)
         loss_g = adv_coef * err_g
         err_g_l2 = zero
         if wtl2 != 0.0:
-            err_g_l2 = losses.mse(fake.detach(), target)
-            loss_g = loss_g + fused_weighted_mse(fake, target, l2_w)
+            err_g_l2 = losses.mse(d_fake.detach(), target)
+            loss_g = loss_g + fused_weighted_mse(d_fake, target, l2_w)
+        err_g_gdl = zero
+        if opt.wtgdl != 0.0:
+            gdl_val = losses.gdl(d_fake, target)
+            if opt.gdlTorchQuirk:
+                # Reference bug: GDL forward logged, MSE gradient applied
+                # (train_vid_weighted.lua:524-525).
+                mse = losses.mse(d_fake, target)
+                loss_g = loss_g + opt.wtgdl * (
+                    mse - mse.detach() + gdl_val.detach())
+            else:
+                loss_g = loss_g + opt.wtgdl * gdl_val
+            err_g_gdl = gdl_val.detach()
 
         state.opt_g.zero_grad(set_to_none=True)
         state.opt_d.zero_grad(set_to_none=True)
@@ -140,7 +197,7 @@ def make_train_step(opt: Opt, regime: str):
         state.step += 1
         return {"errD": loss_d.detach(), "errD_real": err_d_real.detach(),
                 "errD_fake": err_d_fake.detach(), "errG": err_g.detach(),
-                "errG_l2": err_g_l2, "errG_gdl": zero,
+                "errG_l2": err_g_l2, "errG_gdl": err_g_gdl,
                 "errG_total": loss_g.detach()}
 
     return step
@@ -148,25 +205,68 @@ def make_train_step(opt: Opt, regime: str):
 
 def make_preprocess(opt: Opt, regime: str):
     """Device-side preprocessing of a host uint8 batch:
-    ``preprocess(batch, gen=None, draws=None) -> {'real': ...}``.
+    ``preprocess(batch, gen=None, draws=None) -> step batch``.
 
-    batch['raw']: (B,H,W,nc) uint8 on the device, H,W >= fineSize.  Crop
-    offsets and flips come from ``draws`` ({'y0','x0','flip'}) when given,
-    else they are drawn from the CPU generator ``gen`` (``center_draws``)."""
+    The random decisions come from ``draws`` when given (the regime's
+    ``*_draws`` dict, e.g. the JAX side's in a test), else they are drawn
+    from the CPU generator ``gen``."""
     specs_for_regime(opt, regime)  # raises on what is not ported yet
     fs = opt.fineSize
 
-    def center(batch, gen: torch.Generator | None = None,
-               draws: dict | None = None):
+    def crop(x, draws):
+        if x.shape[1] != fs or x.shape[2] != fs:
+            x = image_ops.random_crop(x, fs, draws["y0"], draws["x0"])
+        return x
+
+    def center(batch, gen=None, draws=None):
+        """batch['raw']: (B,H,W,nc) uint8, H,W >= fineSize."""
         x = batch["raw"]
         if draws is None:
             draws = center_draws(opt, gen, x.shape)
-        if x.shape[1] != fs or x.shape[2] != fs:
-            x = image_ops.random_crop(x, fs, draws["y0"], draws["x0"])
-        x = image_ops.normalize_uint8(x)
+        x = image_ops.normalize_uint8(crop(x, draws))
         return {"real": image_ops.random_hflip(x, draws["flip"])}
 
-    return center
+    def video(batch, gen=None, draws=None):
+        """batch['raw']: (B,H,W,nc*predLen) uint8 channel-folded clip;
+        batch['mask']: (B,H,W,1) or unbatched (H,W,1) uint8 {0,1}.  Clip and
+        mask share one crop.  Default donkey: an empty mask crop falls back
+        to random blocks, and clip and mask flip together
+        (datavid/donkey_folder.lua:161-180).  donkey_file=...norandblk...:
+        no fallback, and only the clip flips -- the mask stays frame-fixed
+        (donkey_folder_norandblk.lua:141-158)."""
+        raw, mask = batch["raw"], batch["mask"]
+        if mask.dim() == 3:
+            mask = mask[None].expand((raw.shape[0],) + tuple(mask.shape))
+        if draws is None:
+            draws = video_draws(opt, gen, raw.shape)
+        raw, mask = crop(raw, draws), crop(mask, draws)
+        x = image_ops.normalize_uint8(raw)
+        m = mask.float()
+        if opt.noRandBlk:
+            x = image_ops.random_hflip(x, draws["flip"])
+        else:
+            m = masks.mask_or_random_block(m, draws["blocks"])
+            x, m = image_ops.random_hflip(x, draws["flip"], m)
+        return {"real": x, "mask": m}
+
+    def logo(batch, gen=None, draws=None):
+        """Masked/gt pairs share the flip (donkey_folder_logo.lua:91-98)."""
+        xm = image_ops.normalize_uint8(batch["raw_masked"])
+        xg = image_ops.normalize_uint8(batch["raw_gt"])
+        if draws is None:
+            draws = logo_draws(opt, gen, xm.shape)
+        xm, xg = image_ops.random_hflip(xm, draws["flip"], xg)
+        return {"masked": xm, "real": xg}
+
+    def wholeim(batch, gen=None, draws=None):
+        """Patch arrays arrive sliced and flipped on the host
+        (donkey_wholeim.lua:177-181); only normalisation here."""
+        return {"masked": image_ops.normalize_uint8(batch["raw_masked"]),
+                "real": image_ops.normalize_uint8(batch["raw_real"]),
+                "mask": batch["mask"].float()}
+
+    return {"center": center, "video": video, "logo": logo,
+            "wholeim": wholeim}[regime]
 
 
 def center_draws(opt: Opt, gen: torch.Generator,
@@ -176,3 +276,26 @@ def center_draws(opt: Opt, gen: torch.Generator,
     b, h, w = raw_shape[:3]
     y0, x0 = image_ops.draw_crop_offsets(gen, b, h, w, opt.fineSize)
     return {"y0": y0, "x0": x0, "flip": image_ops.draw_flips(gen, b)}
+
+
+def video_draws(opt: Opt, gen: torch.Generator,
+                raw_shape: tuple[int, ...]) -> dict:
+    """The video preprocess's decisions: a crop shared by clip and mask,
+    the random-block masks (used where a mask crop is empty, unless
+    norandblk) and the flips."""
+    out = center_draws(opt, gen, raw_shape)
+    out["blocks"] = masks.random_block_draws(gen, raw_shape[0], opt.fineSize,
+                                             opt.fineSize)
+    return out
+
+
+def logo_draws(opt: Opt, gen: torch.Generator,
+               raw_shape: tuple[int, ...]) -> dict[str, torch.Tensor]:
+    """The logo preprocess's decisions: flips (B,) shared by the pair."""
+    return {"flip": image_ops.draw_flips(gen, raw_shape[0])}
+
+
+def wholeim_draws(opt: Opt, gen: torch.Generator,
+                  raw_shape: tuple[int, ...]) -> dict:
+    """The wholeim preprocess draws nothing: its randomness is host-side."""
+    return {}
