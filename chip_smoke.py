@@ -33,6 +33,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
   6. timing   -- 20 steps on one device-resident batch, center and video:
                  ms/step, clips/s, peak memory, device idle share.
      (--profile adds a torch.profiler table of device time by kernel.)
+  7. inference -- in phase 5's directory, on its checkpoints and corpus:
+                 tiny f32 inference on the card against the CPU (the
+                 loader's forward per regime, rtol 1e-4 / atol 1e-5; the
+                 server function of every mode, uint8 within one level);
+                 ``load_generator`` of the video checkpoint (conv weights
+                 bf16, BN f32, on the card); ``eval.metrics.evaluate`` over
+                 2 batches of 64 (every value finite) and
+                 ``bench_inference`` at batch 64; ``run_wholeim`` with the
+                 initName cascade and ``run_stream`` over 64 frames (their
+                 PNGs checked); the video server at batch 64 (64 concurrent
+                 single-row requests, each within one level of its solo
+                 result; 400, 503 over budget, the drain); the video
+                 (withInit cascade) and wholeim full-frame servers at
+                 360x480, the input kept outside the mask.
 Then one JSON line of the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
 
@@ -64,6 +78,10 @@ VIDEO_ARGS = ["regime=video", *WIDTH, "predLen=4", "weight_nomask=0.05",
               "loadSize=240"]
 MAIN_STEPS = 5
 TIMED_STEPS = 20
+INFER_BATCHES = 2
+BENCH_ITERS = 20
+STREAM_FRAMES = 64
+FRAME_H, FRAME_W = 360, 480   # the reference corpus's frame size
 
 
 def fail(msg: str) -> None:
@@ -92,16 +110,21 @@ def cuda_ms(fn, iters: int) -> float:
 
 def device_ms(fn, iters: int) -> float:
     """Mean device milliseconds per call of ``fn``: the kernels' own time,
-    summed from a torch.profiler trace."""
+    summed from a torch.profiler trace.  A trace that recorded no device
+    activity at all is taken again, up to twice: CUPTI now and then
+    delivers an empty one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in device_rows(prof))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in device_rows(prof))
+        if total_us > 0:
+            break
     return total_us / 1e3 / iters
 
 
@@ -340,6 +363,402 @@ def time_step(torch, step_fn, state, batch, label, smi, knum=None):
     return step_ms
 
 
+def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
+    """Phase 5: every 2-D regime through ``loop.main`` at full width.
+    Returns the center state and args, the video args and the launch
+    totals, by name."""
+    total = {"fwd": 0, "bwd": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    make_image_folder(j("data"), n=64 * MAIN_STEPS, h=160, w=200)
+    # 320 frames: an epoch holds as many batches as the corpus has frames
+    # (ntrain is capped by the dataset size, as in the JAX loop).
+    synthetic.make_video_corpus(j("corpus"), n_videos=2,
+                                frames=32 * MAIN_STEPS, h=240, w=320)
+    synthetic.make_mask_png(j("mask.png"), h=240, w=320,
+                            box=(100, 130, 170, 220))
+    d_masked, d_gt = synthetic.make_paired_folders(j("pairs"), n=128,
+                                                   h=160, w=200)
+    center_args = [*FULL_WIDTH_ARGS, f"DATA_ROOT={j('data')}"]
+    state_c, launches = run_main(torch, fl, loop, step_mod, center_args,
+                                 "chip_smoke", MAIN_STEPS, tmp)
+    add(launches)
+    video = [*VIDEO_ARGS, f"DATA_ROOT={j('corpus')}",
+             f"maskName={j('mask.png')}", f"ntrain={64 * MAIN_STEPS}"]
+    add(run_main(torch, fl, loop, step_mod,
+                 [*video, "niter=1", "checkpointEvery=1"],
+                 "video", MAIN_STEPS, tmp, [1] * MAIN_STEPS)[1])
+    ckpt = j("checkpoints", "video_1_state.npz")
+    if not os.path.exists(ckpt):
+        fail(f"the video run wrote no checkpoint {ckpt}")
+    state_v, launches = run_main(
+        torch, fl, loop, step_mod,
+        [*video, "niter=2", "checkpointEvery=2", "autoResume=1"],
+        "video", MAIN_STEPS, tmp, [2] * MAIN_STEPS)
+    add(launches)
+    if state_v.step != 2 * MAIN_STEPS:
+        fail(f"the resumed video run ended at step {state_v.step}, "
+             f"expected {2 * MAIN_STEPS}")
+    del state_v
+    add(run_main(
+        torch, fl, loop, step_mod,
+        [*video[:-1], "ntrain=192", "niter=1", "checkpointEvery=2",
+         "withInit=1", f"initName={ckpt}", "weight_nomask=0"],
+        "video_withinit", 3, tmp, [1] * 3)[1])
+    add(run_main(
+        torch, fl, loop, step_mod,
+        ["regime=logo", *WIDTH, f"DATA_ROOT={d_masked}",
+         f"DATA_ROOT_GT={d_gt}", "loadSize=0", "ntrain=128", "niter=1",
+         "checkpointEvery=2"], "logo", 2, tmp, [1] * 2)[1])
+    # wholeim keeps its checkpoint for the full-frame server of phase 7
+    add(run_main(
+        torch, fl, loop, step_mod,
+        ["regime=wholeim", *WIDTH, f"DATA_ROOT={j('corpus')}",
+         f"maskName={j('mask.png')}", "loadSize=240",
+         "weight_nomask=0.05", "ntrain=128", "niter=1",
+         "checkpointEvery=1"], "wholeim", 2, tmp, [1] * 2)[1])
+    print(f"kernel launches over every main-path run: {total}")
+    return {"center_state": state_c, "center_args": center_args,
+            "video": video, "launches": total}
+
+
+def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
+           profile):
+    """Phase 6: center and video steps on one device-resident batch.  The
+    center state is dropped from ``run`` once timed."""
+    state_c = run.pop("center_state")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    opt = from_args(split_regime(run["center_args"])[1])
+    raw = torch.randint(0, 256, (64, 128, 128, 3), generator=g,
+                        dtype=torch.uint8, device="cuda")
+    batch = step_mod.make_preprocess(opt, "center")(
+        {"raw": raw}, torch.Generator().manual_seed(0))
+    time_step(torch, step_mod.make_train_step(opt, "center"), state_c, batch,
+              "center step, batch 64, full width, bf16", smi_line,
+              knum["center bf16"])
+    # Each configuration's peak memory holds its own state only.
+    del state_c, batch
+    gc.collect()
+    opt = from_args(split_regime(run["video"])[1])
+    state = step_mod.init_train_state(opt, "video",
+                                      torch.Generator().manual_seed(0))
+    raw = torch.randint(0, 256, (64, 128, 128, 12), generator=g,
+                        dtype=torch.uint8, device="cuda")
+    mask = torch.zeros(64, 128, 128, 1, dtype=torch.uint8, device="cuda")
+    mask[:, 40:80, 30:90] = 1
+    batch = step_mod.make_preprocess(opt, "video")(
+        {"raw": raw, "mask": mask}, torch.Generator().manual_seed(0))
+    step_fn = step_mod.make_train_step(opt, "video")
+    time_step(torch, step_fn, state, batch,
+              "video step, batch 64, predLen 4, full width, bf16", smi_line,
+              knum["video bf16"])
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step_fn(state, batch)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=40, max_name_column_width=90))
+        rows = sorted(device_rows(prof),
+                      key=lambda e: -e.self_device_time_total)
+        busy = sum(e.self_device_time_total for e in rows)
+        print(f"device activities over 5 steps: {busy / 1e3:.2f} ms")
+        for e in rows[:40]:
+            print(f"{100 * e.self_device_time_total / busy:6.2f}% "
+                  f"{e.self_device_time_total / 5e3:8.3f} ms/step "
+                  f"x{e.count // 5:<4d} {e.key[:110]}")
+
+
+def tiny_checkpoint(torch, Opt, step_mod, ckpt_mod, tmp, regime, **kw):
+    """(Opt on the CPU, path): a tiny f32 port checkpoint of ``regime``, G's
+    weights scaled by 2 and its BN running statistics drawn away from their
+    init values, so that eval mode and the statistics it reads matter.  (By
+    4, tanh saturates and the net amplifies f32 rounding past 1e-3.)"""
+    opt = Opt(device="cpu", nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=2,
+              computeDtype="float32", **kw)
+    state = step_mod.init_train_state(opt, regime,
+                                      torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in state.gen.parameters():
+            p.mul_(2.0)
+        for name, b in state.gen.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5
+                    if name.endswith("running_var")
+                    else torch.randn(b.shape, generator=g) * 0.3)
+    return opt, ckpt_mod.save_checkpoint(tmp, f"tiny_{regime}", 1, state)
+
+
+def post(port, **arrays):
+    """POST an npz to /inpaint; (HTTP status, the "out" array or None)."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(f"http://localhost:{port}/inpaint",
+                                 data=buf.getvalue(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            with np.load(io.BytesIO(r.read()), allow_pickle=False) as d:
+                return r.status, d["out"]
+    except urllib.error.HTTPError as e:
+        return e.code, None
+
+
+def get_status(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def u8_levels(name, got, ref):
+    """Fail unless uint8 ``got`` is within one level of ``ref``; the count
+    of pixels that differ at all."""
+    import numpy as np
+    diff = np.abs(got.astype(np.int16) - ref.astype(np.int16))
+    if got.shape != ref.shape or int(diff.max()) > 1:
+        fail(f"{name}: uint8 outputs differ by more than one level "
+             f"({int((diff > 1).sum())} pixels)")
+    return int((diff > 0).sum())
+
+
+def inference_parity(torch, np, Opt, step_mod, tmp):
+    """Phase 7, first part: tiny f32 inference on the card against the CPU,
+    the loader's forward per regime and the server function per mode."""
+    from video_filler_tpu_torch.checkpoint import ckpt as ckpt_mod
+    from video_filler_tpu_torch.eval.common import load_generator
+    from video_filler_tpu_torch.serve import InpaintServer
+
+    nets = {r: tiny_checkpoint(torch, Opt, step_mod, ckpt_mod, tmp, r, **kw)
+            for r, kw in (("center", dict(overlapPred=4)),
+                          ("video", dict(predLen=2)), ("wholeim", {}))}
+    rs = np.random.RandomState(4)
+    for regime, (opt, path) in nets.items():
+        c = {"center": 3, "video": 6, "wholeim": 27}[regime]
+        x = torch.from_numpy(rs.uniform(-1, 1, (2, 128, 128, c))
+                             .astype(np.float32))
+        with torch.inference_mode():
+            ref = load_generator(opt, regime, path, "cpu")(x)
+            got = load_generator(opt.replace(device="cuda"), regime, path,
+                                 "cuda")(x.cuda()).cpu()
+        err = (got - ref).abs()
+        if bool((err > 1e-5 + 1e-4 * ref.abs()).any()):
+            fail(f"load_generator {regime}: card and CPU differ by "
+                 f"{float(err.max()):.3e}")
+        print(f"card vs CPU, tiny f32 {regime} generator forward: max|diff| "
+              f"{float(err.max()):.2e} (rtol 1e-4, atol 1e-5)")
+
+    def box(h, w, *boxes):
+        m = np.zeros((2, h, w, 1), np.uint8)
+        for y0, y1, x0, x1 in boxes:
+            m[:, y0:y1, x0:x1] = 1
+        return m
+
+    video_net = nets["video"][1]
+    modes = [
+        ("video composite", "video", {}, (2, 128, 128, 6),
+         box(128, 128, (40, 80, 30, 90))),
+        ("center paste", "center", {}, (2, 128, 128, 3),
+         box(128, 128, (0, 128, 0, 128))),
+        ("wholeim patch", "wholeim", {}, (2, 128, 128, 27),
+         box(128, 128, (0, 128, 0, 128))),
+        ("wholeim frame", "wholeim", dict(frameH=180, frameW=240),
+         (2, 180, 240, 3), box(180, 240, (30, 60, 40, 80))),
+        ("video frame + initName", "video",
+         dict(frameH=180, frameW=240, withInit=True, initName=video_net),
+         (2, 180, 240, 6), box(180, 240, (20, 70, 30, 90))),
+    ]
+    for name, regime, kw, shape, mask in modes:
+        opt, path = nets[regime]
+        ctx = rs.randint(0, 256, shape, np.uint8)
+        out = {}
+        for device in ("cpu", "cuda"):
+            srv = InpaintServer(opt.replace(device=device, **kw), regime,
+                                path, device_thread=False)
+            try:
+                out[device] = srv._serve_fn(ctx, mask)
+            finally:
+                srv.close()
+        n = u8_levels(f"server {name}", out["cuda"], out["cpu"])
+        print(f"card vs CPU, tiny f32 server function, {name}: {n} of "
+              f"{out['cpu'].size} uint8 values differ, none by more than 1")
+
+
+def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
+              tmp, smi):
+    """Phase 7: the loader, eval.metrics, the tiled and streaming evals and
+    the server, at full width on the phase 5 checkpoints and corpus."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from video_filler_tpu_torch.eval import metrics
+    from video_filler_tpu_torch.eval.common import load_generator
+    from video_filler_tpu_torch.eval.stream import run_stream
+    from video_filler_tpu_torch.eval.wholeim import run_wholeim
+    from video_filler_tpu_torch.ops.layers import Conv2d, ConvTranspose2d
+    from video_filler_tpu_torch.serve import InpaintServer
+
+    for k in fl.LAUNCHES:
+        fl.LAUNCHES[k] = 0
+    inference_parity(torch, np, Opt, step_mod, tmp)
+
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    net = j("checkpoints", "video_2_state.npz")
+    vopt = from_args(split_regime(video)[1]).replace(net=net)
+    gen = load_generator(vopt, "video", net)
+    convs = [m.weight for m in gen.modules()
+             if isinstance(m, (Conv2d, ConvTranspose2d))]
+    bns = [t for n, t in gen.state_dict().items() if ".bn" in n]
+    if not all(w.dtype == torch.bfloat16 and w.is_cuda for w in convs):
+        fail("load_generator left a conv weight off the card or not bf16")
+    if not all(t.dtype == torch.float32 and t.is_cuda for t in bns):
+        fail("load_generator left a BatchNorm leaf off the card or not f32")
+    print(f"load_generator {os.path.basename(net)}: {len(convs)} conv "
+          f"weights bf16 and {len(bns)} BatchNorm leaves f32 on "
+          f"{convs[0].device}; eval mode {not gen.training}")
+
+    t0 = time.perf_counter()
+    q = metrics.evaluate(vopt, "video", n_batches=INFER_BATCHES, loaded=gen)
+    bad = [k for k, v in q.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"evaluate: non-finite {bad}")
+    print(f"evaluate, video predLen 4, {INFER_BATCHES} batches of 64 in "
+          f"{time.perf_counter() - t0:.1f} s: psnr {q['psnr_db']:.3f} dB, "
+          f"ssim {q['ssim']:.4f}, l2 {q['l2']:.5f}, hole_l2 "
+          f"{q['hole_l2']:.5f}")
+    s = metrics.bench_inference(vopt, "video", iters=BENCH_ITERS, loaded=gen)
+    print(f"bench_inference, video G, batch 64, bf16, {BENCH_ITERS} "
+          f"iterations: {s['clips_per_sec']:.1f} clips/s, "
+          f"{s['frames_per_sec']:.1f} frames/s, batch latency "
+          f"{s['batch_latency_ms']:.2f} ms on {smi}")
+    del gen
+
+    t0 = time.perf_counter()
+    w = run_wholeim(vopt.replace(initName=net), out_dir=j("wholeim_eval"))
+    pm = w["padmask"][None] > 0
+    if not (np.isfinite(w["pred"]).all() and pm.any()
+            and np.array_equal(np.where(pm, 0, w["inpaint"]),
+                               np.where(pm, 0, w["input"]))):
+        fail("run_wholeim: non-finite output or a change outside the mask")
+    pngs = [f"{k}_{t}.png" for k in ("pred", "inpaint", "inpaint_crop",
+                                     "orig") for t in range(1, 5)]
+    missing = [p for p in pngs if not os.path.exists(j("wholeim_eval", p))]
+    if missing:
+        fail(f"run_wholeim wrote no {missing}")
+    print(f"run_wholeim with the initName cascade: {w['pred'].shape} "
+          f"predicted frames, {len(pngs)} PNGs and 3 GIFs in "
+          f"{time.perf_counter() - t0:.1f} s")
+    st = run_stream(vopt, num_frames=STREAM_FRAMES, out_dir=j("stream"))
+    last = j("stream", f"inpaint_{STREAM_FRAMES:05d}.png")
+    if st["n_frames"] != STREAM_FRAMES or not os.path.exists(last):
+        fail(f"run_stream: {st['n_frames']} frames, {last} missing")
+    print(f"run_stream, {STREAM_FRAMES} frames at 240x320 (6 tiles per "
+          f"4-frame window): {st['fps']:.1f} frames/s on {smi}")
+
+    srv = InpaintServer(vopt, "video", net, max_delay_ms=5.0)
+    try:
+        rs = np.random.RandomState(7)
+        ctxs = [rs.randint(0, 256, (128, 128, 12), np.uint8)
+                for _ in range(64)]
+        mask = np.zeros((128, 128, 1), np.uint8)
+        mask[40:80, 30:90] = 1
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(64) as pool:
+            burst = list(pool.map(lambda c: post(srv.port, ctx=c, mask=mask),
+                                  ctxs))
+        dt = time.perf_counter() - t0
+        st = srv.stats()
+        print(f"server, video batch 64, 64 concurrent single-row requests: "
+              f"{64 / dt:.1f} items/s, p50 {st['p50_ms']:.1f} ms, p95 "
+              f"{st['p95_ms']:.1f} ms, avg_fill {st['avg_fill']:.3f} over "
+              f"{st['batches']} batches on {smi}")
+        n_diff = 0
+        for (code, out), c in zip(burst, ctxs):
+            code_solo, solo = post(srv.port, ctx=c, mask=mask)
+            if code != 200 or code_solo != 200:
+                fail(f"server: HTTP {code} / {code_solo}")
+            n_diff += u8_levels("server row against its solo result", out,
+                                solo)
+            if not np.array_equal(out[mask[..., 0] == 0],
+                                  c[mask[..., 0] == 0]):
+                fail("server: the composite changed a pixel outside the "
+                     "mask")
+        print(f"server: each of the 64 rows within one uint8 level of its "
+              f"solo result ({n_diff} values differ); the input kept "
+              f"outside the mask")
+        if post(srv.port, ctx=ctxs[0][:64])[0] != 400:
+            fail("server: a wrongly shaped request was not refused with 400")
+        with srv._stats_lock:          # the backlog full, as infer() fills it
+            srv._pending_rows += srv._max_pending_rows
+        over = post(srv.port, ctx=ctxs[0])[0]
+        with srv._stats_lock:
+            srv._pending_rows -= srv._max_pending_rows
+        srv.initiate_drain()
+        health = get_status(srv.port, "/healthz")[0]
+        drained = post(srv.port, ctx=ctxs[0])[0]
+        srv._worker.join(timeout=30)
+        if (over, health, drained) != (503, 503, 503) or \
+                srv._worker.is_alive():
+            fail(f"server: over budget {over}, healthz while draining "
+                 f"{health}, request while draining {drained}, worker alive "
+                 f"{srv._worker.is_alive()}")
+        print("server: 400 on a wrong shape, 503 over budget, 503 and "
+              "/healthz 503 while draining, then the worker returned")
+    finally:
+        srv.close()
+
+    wi_net = j("checkpoints", "wholeim_1_state.npz")
+    full = [("video", net, vopt.replace(
+                batchSize=8, frameH=FRAME_H, frameW=FRAME_W, withInit=True,
+                initName=net), 12),
+            ("wholeim", wi_net, from_args(
+                [*WIDTH, "batchSize=8", f"frameH={FRAME_H}",
+                 f"frameW={FRAME_W}", "predLen=1"]), 3)]
+    rs = np.random.RandomState(8)
+    for regime, path, opt, c in full:
+        srv = InpaintServer(opt, regime, path, max_delay_ms=1.0)
+        try:
+            frame = rs.randint(0, 256, (FRAME_H, FRAME_W, c), np.uint8)
+            fmask = np.zeros((FRAME_H, FRAME_W, 1), np.uint8)
+            fmask[20:90, 30:170] = 1
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                code, out = post(srv.port, ctx=frame, mask=fmask)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if code != 200:
+                    fail(f"{regime} full-frame server: HTTP {code}")
+            if ms[0] > 250 + 3 * max(ms[1:]):
+                fail(f"{regime} full-frame server: the first request took "
+                     f"{ms[0]:.1f} ms: the constructor's warm-up missed it")
+            outside = np.broadcast_to(fmask == 0, frame.shape)
+            if not np.array_equal(out[outside], frame[outside]) or \
+                    np.array_equal(out[~outside], frame[~outside]):
+                fail(f"{regime} full-frame server: the composite is not the "
+                     "input outside the mask and G inside it")
+            print(f"{regime} full-frame server, {FRAME_H}x{FRAME_W}, batch "
+                  f"8{' with the initName cascade' if regime == 'video' else ''}"
+                  f": one request {' / '.join(f'{m:.1f}' for m in ms)} ms "
+                  f"on {smi}; the input kept outside the mask")
+        finally:
+            srv.close()
+    print(f"loss-kernel launches during inference: {dict(fl.LAUNCHES)} "
+          f"(inference runs no hand-written kernel)")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -390,107 +809,20 @@ def main() -> None:
     phase("4 card vs CPU parity")
     parity_check(torch, np, Opt, step_mod)
 
-    phase("5 main path")
-    total = {"fwd": 0, "bwd": 0}
-
-    def add(launches):
-        for k in total:
-            total[k] += launches[k]
-
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
-        make_image_folder(j("data"), n=64 * MAIN_STEPS, h=160, w=200)
-        # 320 frames: an epoch holds as many batches as the corpus has
-        # frames (ntrain is capped by the dataset size, as in the JAX loop).
-        synthetic.make_video_corpus(j("corpus"), n_videos=2,
-                                    frames=32 * MAIN_STEPS, h=240, w=320)
-        synthetic.make_mask_png(j("mask.png"), h=240, w=320,
-                                box=(100, 130, 170, 220))
-        d_masked, d_gt = synthetic.make_paired_folders(j("pairs"), n=128,
-                                                       h=160, w=200)
-        center_args = [*FULL_WIDTH_ARGS, f"DATA_ROOT={j('data')}"]
-        state_c, launches = run_main(torch, fl, loop, step_mod, center_args,
-                                     "chip_smoke", MAIN_STEPS, tmp)
-        add(launches)
-        video = [*VIDEO_ARGS, f"DATA_ROOT={j('corpus')}",
-                 f"maskName={j('mask.png')}", f"ntrain={64 * MAIN_STEPS}"]
-        add(run_main(torch, fl, loop, step_mod,
-                     [*video, "niter=1", "checkpointEvery=1"],
-                     "video", MAIN_STEPS, tmp, [1] * MAIN_STEPS)[1])
-        ckpt = j("checkpoints", "video_1_state.npz")
-        if not os.path.exists(ckpt):
-            fail(f"the video run wrote no checkpoint {ckpt}")
-        state_v, launches = run_main(
-            torch, fl, loop, step_mod,
-            [*video, "niter=2", "checkpointEvery=2", "autoResume=1"],
-            "video", MAIN_STEPS, tmp, [2] * MAIN_STEPS)
-        add(launches)
-        if state_v.step != 2 * MAIN_STEPS:
-            fail(f"the resumed video run ended at step {state_v.step}, "
-                 f"expected {2 * MAIN_STEPS}")
-        del state_v
-        add(run_main(
-            torch, fl, loop, step_mod,
-            [*video[:-1], "ntrain=192", "niter=1", "checkpointEvery=2",
-             "withInit=1", f"initName={ckpt}", "weight_nomask=0"],
-            "video_withinit", 3, tmp, [1] * 3)[1])
-        add(run_main(
-            torch, fl, loop, step_mod,
-            ["regime=logo", *WIDTH, f"DATA_ROOT={d_masked}",
-             f"DATA_ROOT_GT={d_gt}", "loadSize=0", "ntrain=128", "niter=1",
-             "checkpointEvery=2"], "logo", 2, tmp, [1] * 2)[1])
-        add(run_main(
-            torch, fl, loop, step_mod,
-            ["regime=wholeim", *WIDTH, f"DATA_ROOT={j('corpus')}",
-             f"maskName={j('mask.png')}", "loadSize=240",
-             "weight_nomask=0.05", "ntrain=128", "niter=1",
-             "checkpointEvery=2"], "wholeim", 2, tmp, [1] * 2)[1])
-    print(f"kernel launches over every main-path run: {total}")
+        phase("5 main path")
+        run = main_path(torch, fl, loop, step_mod, synthetic,
+                        make_image_folder, tmp)
 
-    phase("6 timing")
-    smi_line = smi.splitlines()[0]
-    g = torch.Generator(device="cuda").manual_seed(0)
-    opt = from_args(split_regime(center_args)[1])
-    raw = torch.randint(0, 256, (64, 128, 128, 3), generator=g,
-                        dtype=torch.uint8, device="cuda")
-    batch = step_mod.make_preprocess(opt, "center")(
-        {"raw": raw}, torch.Generator().manual_seed(0))
-    time_step(torch, step_mod.make_train_step(opt, "center"), state_c, batch,
-              "center step, batch 64, full width, bf16", smi_line,
-              knum["center bf16"])
-    # Each configuration's peak memory holds its own state only.
-    del state_c, batch
-    gc.collect()
-    opt = from_args(split_regime(video)[1])
-    state = step_mod.init_train_state(opt, "video",
-                                      torch.Generator().manual_seed(0))
-    raw = torch.randint(0, 256, (64, 128, 128, 12), generator=g,
-                        dtype=torch.uint8, device="cuda")
-    mask = torch.zeros(64, 128, 128, 1, dtype=torch.uint8, device="cuda")
-    mask[:, 40:80, 30:90] = 1
-    batch = step_mod.make_preprocess(opt, "video")(
-        {"raw": raw, "mask": mask}, torch.Generator().manual_seed(0))
-    step_fn = step_mod.make_train_step(opt, "video")
-    time_step(torch, step_fn, state, batch,
-              "video step, batch 64, predLen 4, full width, bf16", smi_line,
-              knum["video bf16"])
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step_fn(state, batch)
-            torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=40, max_name_column_width=90))
-        rows = sorted(device_rows(prof),
-                      key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in rows)
-        print(f"device activities over 5 steps: {busy / 1e3:.2f} ms")
-        for e in rows[:40]:
-            print(f"{100 * e.self_device_time_total / busy:6.2f}% "
-                  f"{e.self_device_time_total / 5e3:8.3f} ms/step "
-                  f"x{e.count // 5:<4d} {e.key[:110]}")
+        phase("6 timing")
+        smi_line = smi.splitlines()[0]
+        timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
+               profile)
+        gc.collect()
+
+        phase("7 inference")
+        inference(torch, np, fl, Opt, from_args, split_regime, step_mod,
+                  run["video"], tmp, smi_line)
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"
@@ -499,11 +831,11 @@ def main() -> None:
            for k in ("fwd", "bwd")}
     print(json.dumps({"kernels": [
         {"name": "fused_weighted_mse_fwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:58", "launches": total["fwd"],
+         "replaces": f"{ref}:58", "launches": run["launches"]["fwd"],
          "max_abs_err": err["fwd"], "ms": main_geom["fwd"],
          "plain_ms": main_geom["fwd_plain"]},
         {"name": "fused_weighted_mse_bwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:69", "launches": total["bwd"],
+         "replaces": f"{ref}:69", "launches": run["launches"]["bwd"],
          "max_abs_err": err["bwd"], "ms": main_geom["bwd"],
          "plain_ms": main_geom["bwd_plain"]},
     ]}))

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card (marker ``cuda``).
+"""The port on the card (marker ``cuda``): its CUDA kernels, the train
+step and inference (the generator loader and the server function of every
+mode) against the CPU.
 
 Skipped where there is no CUDA device; on a machine with one they build
 video_filler_tpu_torch/csrc/ with nvcc.  Run there with:
@@ -9,7 +11,8 @@ This file imports no jax (``--noconftest`` skips the suite's jax setup).
 Tolerances: forward rtol 1e-5, f32 backward rtol 1e-6, bf16 backward one
 bf16 rounding (rtol 2**-7); the kernel and its plain version compute the
 same formula, the forward in another summation order.  Card against CPU:
-metrics rtol 1e-3 (cuDNN's conv algorithms sum in another order).
+step metrics rtol 1e-3, inference forwards rtol 1e-4 / atol 1e-5, served
+uint8 within one level (cuDNN's conv algorithms sum in another order).
 """
 
 import numpy as np
@@ -167,3 +170,86 @@ def test_tiny_step_on_the_card_matches_the_cpu(cuda, regime, extra):
         metrics[dev] = {k: v.item() for k, v in m.items()}
     for k, v in metrics["cpu"].items():
         assert metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-6), k
+
+
+# --- inference ------------------------------------------------------------
+
+def _tiny_checkpoint(tmp_path, regime, **kw):
+    """(CPU Opt, path): a tiny f32 port checkpoint, G's weights scaled by 2
+    and its BN running statistics drawn away from their init values."""
+    from video_filler_tpu_torch.checkpoint import ckpt
+    from video_filler_tpu_torch.train import step as tstep
+    opt = Opt(device="cpu", nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=2,
+              computeDtype="float32", **kw)
+    state = tstep.init_train_state(opt, regime,
+                                   torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for p in state.gen.parameters():
+            p.mul_(2.0)
+        for name, b in state.gen.named_buffers():
+            b.copy_(torch.rand(b.shape, generator=g) * 1.5 + 0.5
+                    if name.endswith("running_var")
+                    else torch.randn(b.shape, generator=g) * 0.3)
+    return opt, ckpt.save_checkpoint(str(tmp_path), regime, 1, state)
+
+
+INFER_REGIMES = {"center": (dict(overlapPred=4), 3),
+                 "video": (dict(predLen=2), 6), "wholeim": ({}, 27)}
+
+
+@pytest.mark.parametrize("regime", list(INFER_REGIMES))
+def test_load_generator_on_the_card_matches_the_cpu(cuda, tmp_path, regime):
+    from video_filler_tpu_torch.eval.common import load_generator
+    kw, c = INFER_REGIMES[regime]
+    opt, path = _tiny_checkpoint(tmp_path, regime, **kw)
+    x = torch.from_numpy(np.random.RandomState(4).uniform(
+        -1, 1, (2, 128, 128, c)).astype(np.float32))
+    with torch.inference_mode():
+        ref = load_generator(opt, regime, path, "cpu")(x)
+        got = load_generator(opt.replace(device="cuda"), regime, path,
+                             "cuda")(x.to(cuda))
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
+
+
+SERVE_MODES = {
+    # name: (regime, options, ctx shape, mask boxes)
+    "video_composite": ("video", {}, (2, 128, 128, 6), [(40, 80, 30, 90)]),
+    "center_paste": ("center", {}, (2, 128, 128, 3), [(0, 128, 0, 128)]),
+    "wholeim_patch": ("wholeim", {}, (2, 128, 128, 27), [(0, 128, 0, 128)]),
+    "wholeim_frame": ("wholeim", dict(frameH=180, frameW=240),
+                      (2, 180, 240, 3), [(30, 60, 40, 80)]),
+    "video_frame_init": ("video", dict(frameH=180, frameW=240,
+                                       withInit=True),
+                         (2, 180, 240, 6), [(20, 70, 30, 90)]),
+}
+
+
+@pytest.mark.parametrize("mode", list(SERVE_MODES))
+def test_serve_function_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
+    """uint8 within one level (card and CPU convolutions sum in another
+    order) and equal outside the mask."""
+    from video_filler_tpu_torch.serve import InpaintServer
+    regime, kw, shape, boxes = SERVE_MODES[mode]
+    opt, path = _tiny_checkpoint(tmp_path, regime,
+                                 **INFER_REGIMES[regime][0])
+    if kw.get("withInit"):
+        kw = dict(kw, initName=path)
+    rs = np.random.RandomState(7)
+    ctx = rs.randint(0, 256, shape, np.uint8)
+    mask = np.zeros(shape[:3] + (1,), np.uint8)
+    for y0, y1, x0, x1 in boxes:
+        mask[:, y0:y1, x0:x1] = 1
+    out = {}
+    for dev in ("cpu", "cuda"):
+        srv = InpaintServer(opt.replace(device=dev, **kw), regime, path,
+                            device_thread=False)
+        try:
+            out[dev] = srv._serve_fn(ctx, mask)
+        finally:
+            srv.close()
+    diff = np.abs(out["cuda"].astype(int) - out["cpu"].astype(int))
+    assert diff.max() <= 1
+    if regime == "video":
+        outside = np.broadcast_to(mask == 0, ctx.shape)
+        np.testing.assert_array_equal(out["cuda"][outside], ctx[outside])

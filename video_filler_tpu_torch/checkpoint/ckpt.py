@@ -21,6 +21,9 @@ parameters do (checkpoint/convert.py).  Both optimizers add eps after the
 bias correction, so a resume continues the same update.  The JAX package
 stores bf16 leaves as f32; so does this one (every float leaf is f32).
 
+A keepBest file (``<name>_best_state.npz``) holds G only: its parameters,
+BN statistics and the step (``flatten_generator``).
+
 Writes are atomic (tmp + rename).  ``async_write=True`` copies the state to
 the host at once -- the step updates the tensors in place right after -- and
 writes the file on a background thread; ``wait_pending_saves`` joins the
@@ -118,11 +121,28 @@ def flatten_state(state) -> dict[str, np.ndarray]:
     return flat
 
 
+def flatten_generator(state) -> dict[str, np.ndarray]:
+    """G's parameters and BN statistics and the step, copied to the host:
+    the keys the JAX package's keepBest payload (``_BestG``) flattens to.
+    Inference reads such a file like any checkpoint (``restore_subtree``);
+    D and the Adam moments are left out."""
+    flat: dict[str, np.ndarray] = {}
+    _put(flat, state.gen.state_dict(), ".params_g", ".state_g")
+    flat[".step"] = np.asarray(state.step, np.int32)
+    return flat
+
+
 def _load(path: str) -> tuple[dict[str, np.ndarray], dict]:
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         stored = {k: data[k] for k in data.files if k != "__meta__"}
     return stored, meta
+
+
+def read_meta(path: str) -> dict:
+    """A checkpoint's ``__meta__`` dict, without reading its arrays."""
+    with np.load(path, allow_pickle=False) as data:
+        return json.loads(str(data["__meta__"]))
 
 
 def _load_module(stored, module: torch.nn.Module, prefix: str,
@@ -167,9 +187,11 @@ _SAVE_ERRORS: list[tuple[str, BaseException]] = []
 
 
 def save_checkpoint(ckpt_dir: str, name: str, epoch: int | str, state,
-                    meta: dict | None = None,
-                    async_write: bool = False) -> str:
-    """Atomic save (tmp + rename) of the whole TrainState; returns the path.
+                    meta: dict | None = None, async_write: bool = False,
+                    generator_only: bool = False) -> str:
+    """Atomic save (tmp + rename) of the whole TrainState, or with
+    ``generator_only`` of G, its BN statistics and the step
+    (``flatten_generator``); returns the path.
 
     ``async_write=True``: the device-to-host copy happens here, the
     serialization and disk write on a background thread.  Call
@@ -177,7 +199,7 @@ def save_checkpoint(ckpt_dir: str, name: str, epoch: int | str, state,
     os.makedirs(ckpt_dir, exist_ok=True)
     path = checkpoint_path(ckpt_dir, name, epoch)
     tmp = path + ".tmp"
-    flat = flatten_state(state)
+    flat = (flatten_generator if generator_only else flatten_state)(state)
 
     def write() -> None:
         with open(tmp, "wb") as f:

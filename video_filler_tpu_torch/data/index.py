@@ -310,6 +310,13 @@ class VideoCorpus:
             if r < acc:
                 variant = name
                 break
+        return self.get_clip(v, start, length, variant)
+
+    def get_clip(self, video: int, start: int, length: int,
+                 variant: str | None = None) -> list[str]:
+        """Paths of ``length`` consecutive frames of ``video`` from frame
+        number ``start`` (the first variant unless one is named)."""
+        variant = variant or self.variants[0][0]
         return [os.path.join(self.root, variant,
-                             f"{start + i:0{self.pad}d}{self.suffixes[v]}")
+                             f"{start + i:0{self.pad}d}{self.suffixes[video]}")
                 for i in range(length)]

@@ -1,0 +1,79 @@
+"""Shared eval plumbing: checkpoint -> eval-mode generator on the device
+(counterpart of video_filler_tpu/eval/common.py)."""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from video_filler_tpu_torch.checkpoint import restore_subtree
+from video_filler_tpu_torch.config import Opt, resolve_device
+from video_filler_tpu_torch.models import (
+    Generator,
+    build_generator,
+    specs_for_regime,
+)
+from video_filler_tpu_torch.ops.layers import Conv2d, ConvTranspose2d
+
+T7_ITEM = "ROADMAP A.16, the Torch7 exchange"
+
+
+def generator_spec(opt: Opt, regime: str):
+    """The regime's GeneratorSpec; an option the port does not run yet
+    exits naming its ROADMAP item."""
+    try:
+        return specs_for_regime(opt, regime)[0]
+    except NotImplementedError as e:  # video3d, noiseGen, conditionAdv, ...
+        raise SystemExit(str(e)) from None
+
+
+def gen_input(opt: Opt, ctx: torch.Tensor) -> torch.Tensor:
+    """Generator input for an eval forward: the context itself.  noiseGen
+    generators, which also take a noise draw, are not ported yet."""
+    if opt.noiseGen:
+        raise SystemExit("noiseGen is not ported yet (ROADMAP A.8)")
+    return ctx
+
+
+def load_generator(opt: Opt, regime: str, net_path: str,
+                   device: torch.device | str | None = None) -> Generator:
+    """Just the generator of a training checkpoint (either package's file,
+    a full state or a keepBest ``_best_`` file), in eval mode -- BN reads
+    its running statistics, as ``net:evaluate()`` in every reference test
+    script -- on ``device`` (default ``opt.device``), frozen.  D and the
+    optimizer states in the file are ignored.
+
+    Weight residency: each conv weight is cast to the compute dtype once
+    here; the conv layers cast to it on every call anyway, so the numbers
+    are the same and the per-call cast becomes a no-op.  BN leaves stay
+    f32."""
+    if net_path.endswith(".t7"):
+        raise SystemExit(f"net=*.t7 (a Torch7 checkpoint) is not ported yet "
+                         f"({T7_ITEM})")
+    device = resolve_device(opt) if device is None else torch.device(device)
+    gen = build_generator(generator_spec(opt, regime),
+                          torch.Generator().manual_seed(0))
+    restore_subtree(net_path, gen, ".params_g", ".state_g")
+    gen = gen.to(device).eval().requires_grad_(False)
+    for m in gen.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            m.weight.data = m.weight.data.to(m.dtype)
+    return gen
+
+
+@contextlib.contextmanager
+def live_generator(opt: Opt, regime: str, state):
+    """The training state's generator scored in place, no checkpoint file:
+    in eval mode under ``torch.inference_mode`` for the ``with`` block (no
+    cast of the training weights, no update of the running statistics),
+    back in its earlier mode afterwards."""
+    generator_spec(opt, regime)
+    gen = state.gen
+    was_training = gen.training
+    gen.eval()
+    try:
+        with torch.inference_mode():
+            yield gen
+    finally:
+        gen.train(was_training)

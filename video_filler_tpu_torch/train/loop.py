@@ -19,12 +19,19 @@ CLI (env-var names match the reference; see config.py):
         device=cuda batchSize=64 wtl2=0.999 weight_nomask=0.05 \\
         maskName=maskppp.png predLen=4 nBottleneck=4000
 
+``evalEvery=N`` scores the live generator every N epochs on ``evalSplit``
+(eval/metrics.evaluate); with ``keepBest`` each improvement of
+``bestMetric`` rewrites ``<name>_best_state.npz``, a G-only file that the
+eval CLIs and the server read like any checkpoint, and whose meta carries
+the best value across ``autoResume``.
+
 Options the port does not run yet exit with the ROADMAP item that brings
 them (``unsupported_options``).
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import sys
 import threading
@@ -37,6 +44,7 @@ from video_filler_tpu.utils import MetricsLogger, save_image_grid
 from video_filler_tpu_torch.checkpoint import (
     checkpoint_path,
     prune_checkpoints,
+    read_meta,
     restore_checkpoint,
     restore_latest,
     restore_subtree,
@@ -51,6 +59,8 @@ from video_filler_tpu_torch.config import (
     split_regime,
 )
 from video_filler_tpu_torch.data.pipeline import DataLoader, make_sampler
+from video_filler_tpu_torch.eval.common import live_generator
+from video_filler_tpu_torch.eval.metrics import evaluate
 from video_filler_tpu_torch.models import build_generator, specs_for_regime
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.train.step import (
@@ -59,6 +69,11 @@ from video_filler_tpu_torch.train.step import (
     make_train_step,
     unsupported_step_options,
 )
+
+# The metrics eval/metrics.evaluate reports that keepBest can monitor;
+# PSNR and SSIM improve upwards, the L2s downwards.
+_EVAL_METRICS = {"l2", "psnr_db", "ssim", "hole_l2"}
+_HIGHER_BETTER = {"psnr_db", "ssim"}
 
 
 def unsupported_options(opt: Opt, regime: str) -> list[str]:
@@ -73,14 +88,40 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
         (opt.dataDevice, "dataDevice (ROADMAP A.10)"),
         (opt.seqParallel > 1 or opt.modelParallel > 1 or opt.dataParallel > 1,
          "seqParallel/modelParallel/dataParallel>1 (ROADMAP A.14)"),
-        (opt.evalEvery > 0, "evalEvery (ROADMAP A.9)"),
-        (opt.keepBest, "keepBest (ROADMAP A.9)"),
         (opt.displayServer, "displayServer (ROADMAP A.9)"),
         (opt.profileSteps > 0, "profileSteps (ROADMAP A.9)"),
     )
     out += [f"{what} is not ported yet" for bad, what in checks if bad]
     out += unsupported_step_options(opt)
     return out
+
+
+def check_eval_options(opt: Opt, regime: str) -> None:
+    """evalEvery / keepBest preflight, before any resource exists: a bad
+    combination must stop the run at its start, not at the first eval."""
+    if opt.evalEvery > 0:
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise SystemExit(
+                "evalEvery is single-process: in-train eval draws from a "
+                "host-local sampler -- run eval.metrics on saved "
+                "checkpoints instead")
+        # The video and logo samplers raise on evalSplit=test with
+        # split=100 themselves; a folder's test portion can be empty.
+        if not make_sampler(opt, regime, split=opt.evalSplit)[1]:
+            raise SystemExit(
+                f"evalEvery: evalSplit={opt.evalSplit!r} selects an empty "
+                f"dataset portion (split={opt.split}) -- use split < 100 "
+                "to reserve a held-out portion")
+    if opt.keepBest:
+        if opt.evalEvery <= 0:
+            raise SystemExit("keepBest=1 needs evalEvery=N (>0): the "
+                             "best-so-far test runs at each in-train eval")
+        if opt.bestMetric not in _EVAL_METRICS:
+            raise SystemExit(
+                f"bestMetric={opt.bestMetric!r} is not an eval metric; "
+                f"expected one of {sorted(_EVAL_METRICS)}")
 
 
 def step_seed(seed: int, global_step: int) -> int:
@@ -129,6 +170,7 @@ def train(opt: Opt, regime: str):
     with_init = bool(opt.withInit and opt.initName)
     if with_init and regime != "video":
         raise SystemExit(f"withInit requires regime=video, not {regime!r}")
+    check_eval_options(opt, regime)
     device = resolve_device(opt)
     seed = opt.manualSeed or int(np.random.randint(1, 10000))
     print(f"Seed: {seed}")
@@ -163,6 +205,18 @@ def train(opt: Opt, regime: str):
     if device.type == "cuda":
         # Shapes are fixed across steps: let cuDNN time its algorithms once.
         torch.backends.cudnn.benchmark = True
+    best = None
+    best_path = checkpoint_path(opt.checkpointDir, opt.name, "best")
+    if opt.keepBest and os.path.exists(best_path):
+        # An autoResume'd run keeps the best so far: its first eval must not
+        # overwrite a better earlier peak.  A file banked under another
+        # metric holds no comparable value; the first eval re-banks.
+        meta = read_meta(best_path)
+        if opt.bestMetric in meta:
+            best = float(meta[opt.bestMetric])
+            print(f"keepBest: resuming best-so-far {opt.bestMetric}="
+                  f"{best:.4g} from {best_path}")
+
     preprocess = make_preprocess(opt, regime)
     step_fn = make_train_step(opt, regime, with_init=with_init)
     display_gen = torch.Generator().manual_seed(seed + 1)
@@ -183,6 +237,29 @@ def train(opt: Opt, regime: str):
     def to_device(host_batch):
         return {k: torch.from_numpy(v).to(device)
                 for k, v in host_batch.items()}
+
+    def eval_event(epoch: int, best: float | None) -> float | None:
+        """Score the live G on evalSplit, log it; with keepBest, rewrite the
+        best file (synchronously: successive bests share one path) when
+        bestMetric improves.  Returns the best value so far."""
+        with live_generator(opt, regime, state) as g:
+            m = evaluate(opt.replace(net="(live)"), regime,
+                         n_batches=opt.evalBatches, loaded=g)
+        logger.log_eval(epoch, opt.evalSplit, m)
+        if not opt.keepBest:
+            return best
+        val = float(m[opt.bestMetric])
+        if best is not None and not (val > best
+                                     if opt.bestMetric in _HIGHER_BETTER
+                                     else val < best):
+            return best
+        p = save_checkpoint(opt.checkpointDir, opt.name, "best", state,
+                            meta={"step": state.step, "epoch": epoch,
+                                  "split": opt.evalSplit,
+                                  opt.bestMetric: val},
+                            generator_only=True)
+        print(f"keepBest: {opt.bestMetric}={val:.4g} @epoch {epoch} -> {p}")
+        return val
 
     def flush_log():
         nonlocal pending_log
@@ -254,6 +331,8 @@ def train(opt: Opt, regime: str):
                     return state
             flush_log()
             logger.log_epoch(epoch, opt.niter, time.perf_counter() - t_epoch)
+            if opt.evalEvery > 0 and epoch % opt.evalEvery == 0:
+                best = eval_event(epoch, best)
             if epoch % opt.checkpointEvery == 0:
                 # Prune BEFORE saving: `keep` finished checkpoints stay on
                 # disk even if the incoming async write fails.
