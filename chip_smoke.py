@@ -4,7 +4,9 @@
 Run from the repository root:  python3 chip_smoke.py [--profile]
 
 Phases, in order; any failure raises and the exit code is non-zero:
-  1. device   -- the card's name and power limit; TF32 set explicitly.
+  1. device   -- the card's name and power limit; TF32 set explicitly; no
+                 module of jax or of the JAX package (video_filler_tpu)
+                 loaded by the port's imports.
   2. build    -- nvcc builds video_filler_tpu_torch/csrc/fused_loss.cu for
                  sm_90a; prints the seconds and ptxas's register report.
   3. kernels  -- the fused weighted-MSE kernels against their plain PyTorch
@@ -16,8 +18,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  the video composite (f32 pred, the same weights), wholeim
                  with full-size weights and logo with a 0-dim weight.
                  Forward rtol 1e-5; backward rtol 1e-6 in f32, one bf16 ulp
-                 for bf16 pred; two forwards bitwise equal.  Times kernel and
-                 plain version.
+                 for bf16 pred; two forwards bitwise equal.  Prints each
+                 geometry's plan (row or generic path, index width); times
+                 kernel and plain version with a warm L2, and the kernels
+                 with the L2 flushed between calls against their bound
+                 (the bytes of ``kernel_bytes`` at 3.35 TB/s).  Checks that
+                 no single PyTorch call computes the function.
   4. parity   -- one tiny-width f32 train step on the card against the same
                  step on the CPU, for center, video and wholeim (the CPU port
                  is held against the JAX package by tests/test_torch_*.py).
@@ -29,7 +35,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  autoResume for 5 more, a withInit run from that checkpoint
                  at weight_nomask 0 (composite, f32 pred) for 3; logo and
                  wholeim for 2 each.  Every logged metric finite; each loss
-                 kernel launched at least once per step on every run.
+                 kernel launched at least once per step on every run, all
+                 on the row path (no generic launch).
   6. timing   -- 20 steps on one device-resident batch, center and video:
                  ms/step, clips/s, peak memory, device idle share.
      (--profile adds a torch.profiler table of device time by kernel.)
@@ -47,7 +54,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  result; 400, 503 over budget, the drain); the video
                  (withInit cascade) and wholeim full-frame servers at
                  360x480, the input kept outside the mask.
-Then one JSON line of the kernels' numbers, and as the last line
+Then one JSON line of the kernels' numbers (at the video geometry), and
+as the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -78,6 +86,8 @@ VIDEO_ARGS = ["regime=video", *WIDTH, "predLen=4", "weight_nomask=0.05",
               "loadSize=240"]
 MAIN_STEPS = 5
 TIMED_STEPS = 20
+FLUSH_BYTES = 256 * 2 ** 20   # written, then read, between cold-L2 calls
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA's data sheet
 INFER_BATCHES = 2
 BENCH_ITERS = 20
 STREAM_FRAMES = 64
@@ -135,6 +145,31 @@ def device_rows(prof):
     return [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and not e.is_user_annotation]
+
+
+def cold_device_ms(torch, fn, iters: int, scratch) -> float:
+    """Mean device milliseconds per call of ``fn`` with the L2 flushed
+    before each call: ``scratch`` (FLUSH_BYTES) is written, then read back,
+    so the 50 MB L2 holds other, clean lines.  Only the loss kernels' rows
+    of the trace are summed, not the flush."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                scratch.fill_(1.0)
+                scratch.sum()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in device_rows(prof) if "wmse_" in e.key]
+        launched = sum(e.count for e in rows)
+        if launched:
+            break
+    if launched != iters:
+        fail(f"cold timing: {launched} loss-kernel launches traced for "
+             f"{iters} calls")
+    return sum(e.self_device_time_total for e in rows) / 1e3 / iters
 
 
 def check_close(name, got, ref, rtol):
@@ -200,12 +235,19 @@ def kernel_operands(torch, losses, masks):
     ]
 
 
-def kernel_checks(torch, fl, losses, masks):
-    """Phase 3: every geometry against the plain version; device times for
-    all but the ragged ones.  Returns the numbers by geometry name."""
+def kernel_checks(torch, fl, losses, masks, smi):
+    """Phase 3: every geometry against the plain version; warm and cold-L2
+    device times, bytes, bound and share for all but the ragged ones.
+    Returns the numbers by geometry name."""
     gbar = torch.tensor(1.7, device="cuda")
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda")
     numbers = {}
     for name, p, t, w in kernel_operands(torch, losses, masks):
+        pl = fl.plan(p, t, w)
+        expect = "generic" if name.startswith("ragged") else "row"
+        if pl.variant != expect or not pl.index32:
+            fail(f"{name}: planned {pl.variant} (index32 {pl.index32}, "
+                 f"{pl.reason or 'no reason'}), expected {expect}, 32-bit")
         if name == "video composite f32" and p.dtype != torch.float32:
             fail("the composite of a bf16 fake into the f32 clip is not f32")
         fwd = fl.launch_forward(p, t, w)
@@ -229,8 +271,12 @@ def kernel_checks(torch, fl, losses, masks):
         print(f"{name:20s} pred {tuple(p.shape)} {str(p.dtype)[6:]} weights "
               f"{tuple(w.shape)} strides {tuple(w.expand(p.shape).stride())}"
               f": fwd max|err| {fwd_err:.3e}  bwd max|err| {bwd_err:.3e}  "
-              f"bitwise-repeat ok")
-        numbers[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err)
+              f"bitwise-repeat ok; plan {pl.variant}, "
+              f"{'32' if pl.index32 else '64'}-bit offsets, weights "
+              f"{'float4' if pl.weights_vec else 'by stride'}"
+              f"{', ' + pl.reason if pl.reason else ''}")
+        numbers[name] = dict(fwd_err=fwd_err, bwd_err=bwd_err,
+                             variant=pl.variant, index32=pl.index32)
         if name.startswith("ragged"):
             continue
         calls = {
@@ -249,7 +295,52 @@ def kernel_checks(torch, fl, losses, masks):
         if min(dev.values()) <= 0:
             fail(f"{name}: the profiler recorded no device time")
         numbers[name].update(dev)
+        for k in ("fwd", "bwd"):
+            nbytes = fl.kernel_bytes(p, t, w, k)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            cold = cold_device_ms(torch, calls[k], 20, scratch)
+            numbers[name].update({f"{k}_bytes": nbytes,
+                                  f"{k}_bound": bound, f"{k}_cold": cold})
+            print(f"{name:20s} {k:9s} {nbytes} bytes, bound "
+                  f"{bound * 1e3:.2f} us; device, L2 flushed "
+                  f"{cold * 1e3:.2f} us = {100 * bound / cold:.1f}% of the "
+                  f"bound (warm L2 {dev[k] * 1e3:.2f} us); {pl.variant} "
+                  f"path, {'32' if pl.index32 else '64'}-bit; on {smi}")
+    del scratch
     return numbers
+
+
+def library_check(torch, fl, losses, masks):
+    """The one PyTorch call that might compute the function,
+    ``F.mse_loss(weight=)``: show that it is a composite of several kernels
+    and that its mean divides by the weights' sum, not N."""
+    import inspect
+
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    if "weight" not in inspect.signature(F.mse_loss).parameters:
+        print(f"library call: none.  F.mse_loss on torch "
+              f"{torch.__version__} takes no weights")
+        return
+    _, p, t, w = kernel_operands(torch, losses, masks)[4]   # video bf16
+    wf = w.expand(p.shape).contiguous()   # it takes full-size weights only
+    pf = p.float()
+    ours = float(fl.weighted_mse_reference(p, t, w))
+    lib = float(F.mse_loss(pf, t, weight=wf, reduction="mean"))
+    per_sum = float((wf * (pf - t).square()).sum() / wf.sum())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.mse_loss(pf, t, weight=wf, reduction="mean")
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in device_rows(prof))
+    if kernels < 2 or not math.isclose(lib, per_sum, rel_tol=1e-4) or \
+            math.isclose(lib, ours, rel_tol=1e-3):
+        fail(f"F.mse_loss(weight=) on torch {torch.__version__}: {kernels} "
+             f"kernels, {lib} against sum(w*d^2)/sum(w) {per_sum} and "
+             f"sum(w*d^2)/N {ours}: revisit the library column")
+    print(f"library call: none.  F.mse_loss(weight=, reduction='mean') on "
+          f"torch {torch.__version__} runs {kernels} device kernels per call "
+          f"and divides by sum(w) ({lib:.6f}), not by N ({ours:.6f})")
 
 
 def parity_batches(np):
@@ -310,8 +401,9 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
     each loss kernel launched at least once per step.  ``expect``: the
     epoch of each of the last ``steps`` logged steps.  Returns (state,
     launch counts)."""
-    for k in fl.LAUNCHES:
-        fl.LAUNCHES[k] = 0
+    for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -321,7 +413,7 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
-    launches = dict(fl.LAUNCHES)
+    launches = {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
     with open(os.path.join(tmp, "logs", f"{name}.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     logged = [r for r in recs if "step" in r][-steps:]
@@ -337,6 +429,9 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
     if launches["fwd"] < steps or launches["bwd"] < steps:
         fail(f"{name}: loss kernels launched {launches} times in {steps} "
              f"steps")
+    if launches["generic"] or launches["row"] < 2 * steps:
+        fail(f"{name}: loss kernels launched {launches} times in {steps} "
+             f"steps: every launch must take the row path")
     n_params = sum(p.numel() for p in state.gen.parameters())
     print(f"{name}: {steps} full-width steps in {seconds:.1f} s (first-step "
           f"cudnn autotune included); G params {n_params / 1e6:.1f} M; "
@@ -367,7 +462,7 @@ def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
     """Phase 5: every 2-D regime through ``loop.main`` at full width.
     Returns the center state and args, the video args and the launch
     totals, by name."""
-    total = {"fwd": 0, "bwd": 0}
+    total = {"fwd": 0, "bwd": 0, "row": 0, "generic": 0}
 
     def add(launches):
         for k in total:
@@ -781,6 +876,12 @@ def main() -> None:
     from video_filler_tpu_torch.train import step as step_mod
 
     phase("1 device")
+    jax_loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "video_filler_tpu"))
+    if jax_loaded:
+        fail(f"the port's imports loaded {jax_loaded[:8]}: it must import "
+             f"nothing of jax or of the JAX package")
+    print("sys.modules after the port's imports: no jax, no video_filler_tpu")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -804,7 +905,9 @@ def main() -> None:
             print("  " + line.strip())
 
     phase("3 kernels vs plain")
-    knum = kernel_checks(torch, fl, losses, masks)
+    smi_line = smi.splitlines()[0]
+    knum = kernel_checks(torch, fl, losses, masks, smi_line)
+    library_check(torch, fl, losses, masks)
 
     phase("4 card vs CPU parity")
     parity_check(torch, np, Opt, step_mod)
@@ -815,7 +918,6 @@ def main() -> None:
                         make_image_folder, tmp)
 
         phase("6 timing")
-        smi_line = smi.splitlines()[0]
         timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
                profile)
         gc.collect()
@@ -830,15 +932,15 @@ def main() -> None:
     err = {k: max(v[f"{k}_err"] for v in knum.values())
            for k in ("fwd", "bwd")}
     print(json.dumps({"kernels": [
-        {"name": "fused_weighted_mse_fwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:58", "launches": run["launches"]["fwd"],
-         "max_abs_err": err["fwd"], "ms": main_geom["fwd"],
-         "plain_ms": main_geom["fwd_plain"]},
-        {"name": "fused_weighted_mse_bwd", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:69", "launches": run["launches"]["bwd"],
-         "max_abs_err": err["bwd"], "ms": main_geom["bwd"],
-         "plain_ms": main_geom["bwd_plain"]},
-    ]}))
+        {"name": f"fused_weighted_mse_{k}", "route": "cuda", "source": rel,
+         "replaces": f"{ref}:{line}", "launches": run["launches"][k],
+         "max_abs_err": err[k], "ms": main_geom[k],
+         "plain_ms": main_geom[f"{k}_plain"],
+         "bound_ms": main_geom[f"{k}_bound"], "bound_by": "bytes",
+         "library_ms": None, "cold_ms": main_geom[f"{k}_cold"],
+         "share": main_geom[f"{k}_bound"] / main_geom[f"{k}_cold"],
+         "variant": main_geom["variant"]}
+        for k, line in (("fwd", 58), ("bwd", 69))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

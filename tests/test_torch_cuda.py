@@ -1,6 +1,8 @@
-"""The port on the card (marker ``cuda``): its CUDA kernels, the train
-step and inference (the generator loader and the server function of every
-mode) against the CPU.
+"""The port on the card (marker ``cuda``): its CUDA kernels (against
+their plain versions, the path each geometry takes, one launch per forward,
+bitwise repeats, the per-stream workspace), the train step and inference
+(the generator loader and the server function of every mode) against the
+CPU.
 
 Skipped where there is no CUDA device; on a machine with one they build
 video_filler_tpu_torch/csrc/ with nvcc.  Run there with:
@@ -128,6 +130,92 @@ def test_forward_is_bitwise_repeatable(cuda):
     a = fl.launch_forward(pred, target, w)
     b = fl.launch_forward(pred, target, w)
     assert torch.equal(a, b)
+
+
+def _video_operands(dev, b=64):
+    """The video step's loss operands at full size: bf16 fake, f32 clip,
+    (B,H,W,1) mask weights."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    clip = torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2 - 1
+    fake = (torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2
+            - 1).bfloat16()
+    mask = (torch.rand(b, 128, 128, 1, generator=g, device=dev) < 0.3).float()
+    return fake, clip, 0.999 * losses.mask_l2_weights(mask, 0.05)
+
+
+@pytest.mark.parametrize("geometry", ["center_f32", "center_bf16",
+                                      *REGIME_CASES, "ragged_f32",
+                                      "ragged_bf16"])
+def test_launches_count_by_variant(cuda, geometry):
+    """The main-path geometries take the row path, the ragged ones the
+    generic path: one launch of that variant per direction."""
+    if geometry in REGIME_CASES:
+        pred, target, w = _regime_operands(cuda, geometry)
+    else:
+        shape, dtype, strided = CASES[["center_f32", "center_bf16",
+                                       "ragged_f32", "ragged_bf16"]
+                                      .index(geometry)]
+        pred, target, w = _operands(cuda, shape, dtype, strided)
+    variant = "generic" if geometry.startswith("ragged") else "row"
+    assert fl.plan(pred, target, w).variant == variant
+    before = dict(fl.VARIANT_LAUNCHES)
+    leaf = pred.clone().requires_grad_(True)
+    fl.fused_weighted_mse(leaf, target, w).backward()
+    torch.cuda.synchronize()
+    other = "row" if variant == "generic" else "generic"
+    assert fl.VARIANT_LAUNCHES[variant] == before[variant] + 2
+    assert fl.VARIANT_LAUNCHES[other] == before[other]
+
+
+@pytest.mark.parametrize("geometry", ["video", "ragged"])
+def test_one_forward_is_one_launch(cuda, geometry):
+    from torch.profiler import ProfilerActivity, profile
+    if geometry == "video":
+        pred, target, w = _video_operands(cuda)
+    else:
+        pred, target, w = _operands(cuda, (3, 7, 9, 5), torch.float32, False)
+    fl.launch_forward(pred, target, w)      # build, workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fl.launch_forward(pred, target, w)
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    assert len(kernels) == 1 and kernels[0][1] == 1, kernels
+    assert "wmse_" in kernels[0][0]
+
+
+def test_forward_is_bitwise_repeatable_at_the_video_geometry(cuda):
+    pred, target, w = _video_operands(cuda)
+    first = fl.launch_forward(pred, target, w)
+    for _ in range(3):
+        assert torch.equal(fl.launch_forward(pred, target, w), first)
+    torch.testing.assert_close(first,
+                               fl.weighted_mse_reference(pred, target, w),
+                               rtol=1e-5, atol=0)
+
+
+def test_a_second_stream_gets_its_own_workspace_and_the_same_result(cuda):
+    pred, target, w = _video_operands(cuda, b=8)
+    ref = fl.launch_forward(pred, target, w)
+    ref_grad = fl.launch_backward(pred, target, w,
+                                  torch.tensor(1.3, device=cuda))
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = [fl.launch_forward(pred, target, w) for _ in range(2)]
+        grad = fl.launch_backward(pred, target, w,
+                                  torch.tensor(1.3, device=cuda))
+    side.synchronize()
+    keys = [k for k in fl._WORKSPACES if k[0] == (cuda.index or 0)]
+    assert (cuda.index or 0, side.cuda_stream) in keys and len(keys) >= 2
+    assert all(torch.equal(g, ref) for g in got)
+    assert torch.equal(grad, ref_grad)
+    # the ticket is back at 0 after every call on either stream
+    for ws, capacity in fl._WORKSPACES.values():
+        assert ws[capacity:].view(torch.int32).item() == 0
 
 
 def test_mixed_devices_raise(cuda):

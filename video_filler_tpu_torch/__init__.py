@@ -2,7 +2,7 @@
 NVIDIA H100.
 
 The JAX package stays the reference; this package mirrors its module names:
-  config       the shared option table plus ``device``
+  config       its own copy of the option table, plus ``device``
   ops/         image, mask and loss ops, NN layers; ops/cuda holds the
                hand-written Hopper kernels (sources in csrc/)
   models/      generators / discriminators of the 2-D regimes
@@ -10,9 +10,10 @@ The JAX package stays the reference; this package mirrors its module names:
                trees <-> the port's state dicts
   train/       the GAN train step of every 2-D regime, the epoch driver + CLI
   data/        indexes, host decode, samplers, prefetch, fixtures
+  utils/       PNG/GIF writers, the JSONL metrics logger, the HTTP handler
   entry.py     the flagship video generator, ready to call
 
-It imports torch and never jax.
+It imports torch and nothing of the JAX package.
 """
 
 __version__ = "0.1.0"

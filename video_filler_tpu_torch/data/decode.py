@@ -1,6 +1,6 @@
 """Host-side image decode + variable-shape resize, copied from
-video_filler_tpu/data/decode.py (that module's package pulls in jax on
-import).
+video_filler_tpu/data/decode.py (the port imports nothing of the JAX
+package).
 
 Replaces the Torch ``image`` C library calls in the donkeys
 (data/donkey_folder.lua:39-62): JPEG/PNG decode and the aspect-preserving

@@ -1,6 +1,6 @@
 """Dataset indexing: ``FolderIndex``, ``PairedIndex`` and ``VideoCorpus``,
-copied from video_filler_tpu/data/index.py (that module's package pulls in
-jax on import).  It replaces the reference's shell-out indexer
+copied from video_filler_tpu/data/index.py (the port imports nothing of
+the JAX package).  It replaces the reference's shell-out indexer
 (data/dataset.lua:115-244): ``os.scandir`` plus a JSON cache keyed by the
 root and a directory-tree mtime signature.
 

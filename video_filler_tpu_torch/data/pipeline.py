@@ -1,6 +1,6 @@
 """Host data pipeline: per-regime batch samplers and the threaded prefetch
-pump, copied from video_filler_tpu/data/pipeline.py (that module's package
-pulls in jax on import).  Python decode path only; the native C++ decode
+pump, copied from video_filler_tpu/data/pipeline.py (the port imports
+nothing of the JAX package).  Python decode path only; the native C++ decode
 comes later (ROADMAP A.1).
 
 Samplers return uint8 numpy batches; flip, normalisation and mask synthesis

@@ -1,6 +1,6 @@
 """Synthetic datasets for tests, demos and the chip smoke run, copied from
-video_filler_tpu/data/synthetic.py (that module's package pulls in jax on
-import): image folders, masked/gt pair folders, video corpora and logo mask
+video_filler_tpu/data/synthetic.py (the port imports nothing of the JAX
+package): image folders, masked/gt pair folders, video corpora and logo mask
 PNGs, with the on-disk layout of the real ones."""
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ import os
 
 import numpy as np
 
-from video_filler_tpu.utils.io import save_png
+from video_filler_tpu_torch.utils.io import save_png
 
 
 def _texture(rs: np.random.RandomState, h: int, w: int, nc: int = 3

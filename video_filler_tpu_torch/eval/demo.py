@@ -16,13 +16,13 @@ import sys
 import numpy as np
 import torch
 
-from video_filler_tpu.utils import save_image_grid
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.data import decode
 from video_filler_tpu_torch.data.index import IMG_EXTS
 from video_filler_tpu_torch.eval.common import gen_input, load_generator
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.ops.image import normalize_uint8
+from video_filler_tpu_torch.utils import save_image_grid
 
 
 def run_demo(opt: Opt, out_path: str | None = None) -> dict[str, np.ndarray]:

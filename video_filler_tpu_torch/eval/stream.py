@@ -27,7 +27,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from video_filler_tpu.utils import save_gif, save_png
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.data import decode
 from video_filler_tpu_torch.data.index import VideoCorpus
@@ -41,6 +40,7 @@ from video_filler_tpu_torch.ops.image import (
     denormalize_to_uint8,
     normalize_uint8,
 )
+from video_filler_tpu_torch.utils import save_gif, save_png
 
 GIF_MAX_FRAMES = 64
 

@@ -16,13 +16,13 @@ import sys
 import numpy as np
 import torch
 
-from video_filler_tpu.utils import save_gif, save_png
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.data.index import VideoCorpus
 from video_filler_tpu_torch.data.pipeline import load_mask, video_sampler
 from video_filler_tpu_torch.eval.common import gen_input, load_generator
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.train.step import make_preprocess
+from video_filler_tpu_torch.utils import save_gif, save_png
 
 
 def unfold_frames(clip: np.ndarray, nc: int) -> np.ndarray:

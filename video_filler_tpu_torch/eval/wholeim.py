@@ -33,7 +33,6 @@ import sys
 import numpy as np
 import torch
 
-from video_filler_tpu.utils import save_gif, save_png
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.data import decode
 from video_filler_tpu_torch.data.index import VideoCorpus
@@ -44,6 +43,7 @@ from video_filler_tpu_torch.eval.tiling import (
     scatter_tiles,
 )
 from video_filler_tpu_torch.ops import masks
+from video_filler_tpu_torch.utils import save_gif, save_png
 
 
 def _load_padded_frames(opt: Opt, corpus: VideoCorpus,

@@ -122,6 +122,11 @@ class Generator(nn.Module):
         ``update_stats``, updates the running ones."""
         h = self.enc(x.permute(0, 3, 1, 2), update_stats)
         h = self.bott_act(self.bott_bn(h, update_stats))
+        # The (B,nb,1,1) bottleneck has NCHW strides, which PyTorch reads as
+        # the NCHW format: the decoder would run NCHW and G's output,
+        # permuted back, would not be contiguous (B,H,W,C).  The same memory
+        # with channels-last strides keeps the decoder channels-last.
+        h = h.reshape(h.shape[0], 1, 1, h.shape[1]).permute(0, 3, 1, 2)
         return self.dec(h, update_stats).permute(0, 2, 3, 1)
 
 

@@ -70,7 +70,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from video_filler_tpu.utils.httpbase import QuietHandler
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.eval.common import generator_spec, load_generator
 from video_filler_tpu_torch.eval.tiling import VFLIP_TOP_TILES
@@ -79,6 +78,7 @@ from video_filler_tpu_torch.ops.image import (
     denormalize_to_uint8,
     normalize_uint8,
 )
+from video_filler_tpu_torch.utils.httpbase import QuietHandler
 
 REQUEST_TIMEOUT_S = 60.0  # the client's wait; queued entries older than
                           # this are dropped unprocessed (nobody reads them)

@@ -40,7 +40,6 @@ import time
 import numpy as np
 import torch
 
-from video_filler_tpu.utils import MetricsLogger, save_image_grid
 from video_filler_tpu_torch.checkpoint import (
     checkpoint_path,
     prune_checkpoints,
@@ -69,6 +68,7 @@ from video_filler_tpu_torch.train.step import (
     make_train_step,
     unsupported_step_options,
 )
+from video_filler_tpu_torch.utils import MetricsLogger, save_image_grid
 
 # The metrics eval/metrics.evaluate reports that keepBest can monitor;
 # PSNR and SSIM improve upwards, the L2s downwards.
