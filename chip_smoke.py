@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  strided operands, and the 128x128 regimes -- video
                  (64,128,128,12) bf16 pred with (64,128,128,1) mask weights,
                  the video composite (f32 pred, the same weights), wholeim
-                 with full-size weights and logo with a 0-dim weight.
+                 with full-size weights, logo with a 0-dim weight, and the
+                 video3d clips (64,4,128,128,3) bf16 pred with
+                 (64,1,128,128,1) mask weights (stride 0 over T) and their
+                 f32 composite.
                  Forward rtol 1e-5; backward rtol 1e-6 in f32, one bf16 ulp
                  for bf16 pred; two forwards bitwise equal.  Prints each
                  geometry's plan (row or generic path, index width); times
@@ -25,8 +28,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  (the bytes of ``kernel_bytes`` at 3.35 TB/s).  Checks that
                  no single PyTorch call computes the function.
   4. parity   -- one tiny-width f32 train step on the card against the same
-                 step on the CPU, for center, video and wholeim (the CPU port
-                 is held against the JAX package by tests/test_torch_*.py).
+                 step on the CPU, for center, video, wholeim and video3d (the
+                 CPU port is held against the JAX package by
+                 tests/test_torch_*.py).
   5. main     -- ``video_filler_tpu_torch.train.loop.main`` at full width
                  (nef=ngf=ndf=64, nBottleneck=4000, fineSize=128, batch 64,
                  bf16) on synthetic data: center for 5 steps; the canonical
@@ -34,11 +38,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  0.05, maskValue 110/255) for 5 steps with a checkpoint, its
                  autoResume for 5 more, a withInit run from that checkpoint
                  at weight_nomask 0 (composite, f32 pred) for 3; logo and
-                 wholeim for 2 each.  Every logged metric finite; each loss
-                 kernel launched at least once per step on every run, all
-                 on the row path (no generic launch).
-  6. timing   -- 20 steps on one device-resident batch, center and video:
-                 ms/step, clips/s, peak memory, device idle share.
+                 wholeim for 2 each; video3d (the temporal 3-D family,
+                 video3dLevels 5, predLen 4, ~279 M G parameters) for 5
+                 steps with a checkpoint, its autoResume for 2 more and a
+                 withInit run at weight_nomask 0 for 2.  Every logged
+                 metric finite; each loss kernel launched once per step in
+                 each direction on every run, all on the row path (no
+                 generic launch).
+  6. timing   -- 20 steps on one device-resident batch, center, video and
+                 video3d: ms/step, clips/s, peak memory, device idle
+                 share.
      (--profile adds a torch.profiler table of device time by kernel.)
   7. inference -- in phase 5's directory, on its checkpoints and corpus:
                  tiny f32 inference on the card against the CPU (the
@@ -53,9 +62,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  single-row requests, each within one level of its solo
                  result; 400, 503 over budget, the drain); the video
                  (withInit cascade) and wholeim full-frame servers at
-                 360x480, the input kept outside the mask.
-Then one JSON line of the kernels' numbers (at the video geometry), and
-as the last line
+                 360x480, the input kept outside the mask; the video3d
+                 checkpoint: ``load_generator`` (3-D conv weights bf16),
+                 ``bench_inference`` at batch 64 and its server under 64
+                 concurrent single-row requests.
+Then one JSON line of the kernels' numbers (at the video geometry, and by
+geometry under "geometries"), and as the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -84,6 +96,10 @@ FULL_WIDTH_ARGS = ["regime=center", *WIDTH, "overlapPred=4", "niter=1",
 # maskValue keeps its default, 110/255.
 VIDEO_ARGS = ["regime=video", *WIDTH, "predLen=4", "weight_nomask=0.05",
               "loadSize=240"]
+# The JAX package's temporal family at its defaults (context_encoder_3d.py):
+# five (3,4,4) levels to 4x4, a (T,4,4) valid bottleneck; the video data.
+VIDEO3D_ARGS = ["regime=video3d", *WIDTH, "video3dLevels=5", "predLen=4",
+                "weight_nomask=0.05", "loadSize=240"]
 MAIN_STEPS = 5
 TIMED_STEPS = 20
 FLUSH_BYTES = 256 * 2 ** 20   # written, then read, between cold-L2 calls
@@ -223,6 +239,13 @@ def kernel_operands(torch, losses, masks):
     w_wi = 0.999 * losses.mask_l2_weights(mask_wi, 0.05)
     gt_logo = clip[..., :3].contiguous()
     wtl2 = torch.tensor(0.999, device=dev)
+    # video3d, predLen 4: (B,T,H,W,C) clips, a (B,1,H,W,1) mask over T
+    clip3 = torch.rand(64, 4, 128, 128, 3, generator=g, device=dev) * 2 - 1
+    fake3 = (torch.rand(64, 4, 128, 128, 3, generator=g, device=dev) * 2
+             - 1).bfloat16()
+    mask3 = (torch.rand(64, 1, 128, 128, 1, generator=g, device=dev)
+             < 0.3).float()
+    w3 = 0.999 * losses.mask_l2_weights(mask3, 0.05)
     return [
         ("center f32", pred_c, target, ring),
         ("center bf16", pred_c.bfloat16(), target, ring),
@@ -232,6 +255,9 @@ def kernel_operands(torch, losses, masks):
         ("video composite f32", composite, clip, w_vid),
         ("wholeim bf16", fake, clip, w_wi),
         ("logo bf16", fake[..., :3].contiguous(), gt_logo, wtl2),
+        ("video3d bf16", fake3, clip3, w3),
+        ("video3d composite f32", masks.fill_in(clip3, mask3, fake3), clip3,
+         w3),
     ]
 
 
@@ -248,8 +274,12 @@ def kernel_checks(torch, fl, losses, masks, smi):
         if pl.variant != expect or not pl.index32:
             fail(f"{name}: planned {pl.variant} (index32 {pl.index32}, "
                  f"{pl.reason or 'no reason'}), expected {expect}, 32-bit")
-        if name == "video composite f32" and p.dtype != torch.float32:
+        if name.endswith("composite f32") and p.dtype != torch.float32:
             fail("the composite of a bf16 fake into the f32 clip is not f32")
+        if name.startswith("video3d") and (
+                w.expand(p.shape).stride()[1] != 0
+                or pl.weight_strides[1] != 0):
+            fail(f"{name}: the clip weights are not read by stride 0 over T")
         fwd = fl.launch_forward(p, t, w)
         fwd2 = fl.launch_forward(p, t, w)
         torch.cuda.synchronize()
@@ -360,6 +390,10 @@ def parity_batches(np):
         ("wholeim", dict(weight_nomask=0.05),
          {"masked": images(27), "real": images(12),
           "mask": np.repeat(box, 12, axis=-1)}),
+        ("video3d", dict(predLen=2, weight_nomask=0.05, fineSize=32,
+                         video3dLevels=3),
+         {"real": rs.rand(4, 2, 32, 32, 3).astype(np.float32) * 2 - 1,
+          "mask": box[:, None, 40:72, 40:72]}),
     ]
 
 
@@ -426,10 +460,10 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
         bad = [k for k in step_mod.METRIC_KEYS if not math.isfinite(r[k])]
         if bad:
             fail(f"{name}: non-finite metrics {bad} at step {r['step']}")
-    if launches["fwd"] < steps or launches["bwd"] < steps:
+    if launches["fwd"] != steps or launches["bwd"] != steps:
         fail(f"{name}: loss kernels launched {launches} times in {steps} "
-             f"steps")
-    if launches["generic"] or launches["row"] < 2 * steps:
+             f"steps, not once per step in each direction")
+    if launches["generic"] or launches["row"] != 2 * steps:
         fail(f"{name}: loss kernels launched {launches} times in {steps} "
              f"steps: every launch must take the row path")
     n_params = sum(p.numel() for p in state.gen.parameters())
@@ -459,8 +493,8 @@ def time_step(torch, step_fn, state, batch, label, smi, knum=None):
 
 
 def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
-    """Phase 5: every 2-D regime through ``loop.main`` at full width.
-    Returns the center state and args, the video args and the launch
+    """Phase 5: every regime through ``loop.main`` at full width.  Returns
+    the center state and args, the video and video3d args and the launch
     totals, by name."""
     total = {"fwd": 0, "bwd": 0, "row": 0, "generic": 0}
 
@@ -516,15 +550,45 @@ def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
          f"maskName={j('mask.png')}", "loadSize=240",
          "weight_nomask=0.05", "ntrain=128", "niter=1",
          "checkpointEvery=1"], "wholeim", 2, tmp, [1] * 2)[1])
+    # video3d: 5 steps and a checkpoint, 2 more on its autoResume, and a
+    # withInit cascade from the checkpoint at weight_nomask 0 for 2
+    video3d = [*VIDEO3D_ARGS, f"DATA_ROOT={j('corpus')}",
+               f"maskName={j('mask.png')}"]
+    launches3 = {"fwd": 0, "bwd": 0, "row": 0, "generic": 0}
+    runs3 = [
+        ([f"ntrain={64 * MAIN_STEPS}", "niter=1", "checkpointEvery=1"],
+         "video3d", MAIN_STEPS, [1] * MAIN_STEPS),
+        (["ntrain=128", "niter=2", "checkpointEvery=5", "autoResume=1"],
+         "video3d", 2, [2] * 2),
+        (["ntrain=128", "niter=1", "checkpointEvery=5", "withInit=1",
+          f"initName={j('checkpoints', 'video3d_1_state.npz')}",
+          "weight_nomask=0"], "video3d_withinit", 2, [1] * 2),
+    ]
+    for extra, name, steps, epochs in runs3:
+        state3, launches = run_main(torch, fl, loop, step_mod,
+                                    [*video3d, *extra], name, steps, tmp,
+                                    epochs)
+        if name == "video3d" and state3.step not in (MAIN_STEPS,
+                                                      MAIN_STEPS + 2):
+            fail(f"the video3d run ended at step {state3.step}")
+        del state3
+        gc.collect()
+        add(launches)
+        for k in launches3:
+            launches3[k] += launches[k]
+    print(f"video3d kernel launches over its 3 runs ({MAIN_STEPS + 4} "
+          f"steps): {launches3}")
     print(f"kernel launches over every main-path run: {total}")
     return {"center_state": state_c, "center_args": center_args,
-            "video": video, "launches": total}
+            "video": video, "video3d": video3d, "launches": total,
+            "launches_video3d": launches3}
 
 
 def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
            profile):
-    """Phase 6: center and video steps on one device-resident batch.  The
-    center state is dropped from ``run`` once timed."""
+    """Phase 6: center, video and video3d steps, each on one
+    device-resident batch with only its own state alive.  The center state
+    is dropped from ``run`` once timed."""
     state_c = run.pop("center_state")
     g = torch.Generator(device="cuda").manual_seed(0)
     opt = from_args(split_regime(run["center_args"])[1])
@@ -552,22 +616,40 @@ def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
               "video step, batch 64, predLen 4, full width, bf16", smi_line,
               knum["video bf16"])
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                step_fn(state, batch)
-            torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="self_device_time_total",
-                                        row_limit=40, max_name_column_width=90))
-        rows = sorted(device_rows(prof),
-                      key=lambda e: -e.self_device_time_total)
-        busy = sum(e.self_device_time_total for e in rows)
-        print(f"device activities over 5 steps: {busy / 1e3:.2f} ms")
-        for e in rows[:40]:
-            print(f"{100 * e.self_device_time_total / busy:6.2f}% "
-                  f"{e.self_device_time_total / 5e3:8.3f} ms/step "
-                  f"x{e.count // 5:<4d} {e.key[:110]}")
+        profile_table(torch, step_fn, state, batch)
+    del state, batch, step_fn
+    gc.collect()
+    opt = from_args(split_regime(run["video3d"])[1])
+    state = step_mod.init_train_state(opt, "video3d",
+                                      torch.Generator().manual_seed(0))
+    batch = step_mod.make_preprocess(opt, "video3d")(
+        {"raw": raw, "mask": mask}, torch.Generator().manual_seed(0))
+    step_fn = step_mod.make_train_step(opt, "video3d")
+    time_step(torch, step_fn, state, batch,
+              "video3d step, batch 64, predLen 4, video3dLevels 5, full "
+              "width, bf16", smi_line, knum["video3d bf16"])
+    if profile:
+        profile_table(torch, step_fn, state, batch)
+
+
+def profile_table(torch, step_fn, state, batch):
+    """--profile: device time by kernel over 5 steps."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            step_fn(state, batch)
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=40, max_name_column_width=90))
+    rows = sorted(device_rows(prof),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows)
+    print(f"device activities over 5 steps: {busy / 1e3:.2f} ms")
+    for e in rows[:40]:
+        print(f"{100 * e.self_device_time_total / busy:6.2f}% "
+              f"{e.self_device_time_total / 5e3:8.3f} ms/step "
+              f"x{e.count // 5:<4d} {e.key[:110]}")
 
 
 def tiny_checkpoint(torch, Opt, step_mod, ckpt_mod, tmp, regime, **kw):
@@ -638,13 +720,16 @@ def inference_parity(torch, np, Opt, step_mod, tmp):
     from video_filler_tpu_torch.eval.common import load_generator
     from video_filler_tpu_torch.serve import InpaintServer
 
+    v3d = dict(predLen=2, fineSize=32, video3dLevels=3)
     nets = {r: tiny_checkpoint(torch, Opt, step_mod, ckpt_mod, tmp, r, **kw)
             for r, kw in (("center", dict(overlapPred=4)),
-                          ("video", dict(predLen=2)), ("wholeim", {}))}
+                          ("video", dict(predLen=2)), ("wholeim", {}),
+                          ("video3d", v3d))}
     rs = np.random.RandomState(4)
     for regime, (opt, path) in nets.items():
-        c = {"center": 3, "video": 6, "wholeim": 27}[regime]
-        x = torch.from_numpy(rs.uniform(-1, 1, (2, 128, 128, c))
+        shape = {"center": (128, 128, 3), "video": (128, 128, 6),
+                 "wholeim": (128, 128, 27), "video3d": (2, 32, 32, 3)}[regime]
+        x = torch.from_numpy(rs.uniform(-1, 1, (2,) + shape)
                              .astype(np.float32))
         with torch.inference_mode():
             ref = load_generator(opt, regime, path, "cpu")(x)
@@ -676,6 +761,8 @@ def inference_parity(torch, np, Opt, step_mod, tmp):
         ("video frame + initName", "video",
          dict(frameH=180, frameW=240, withInit=True, initName=video_net),
          (2, 180, 240, 6), box(180, 240, (20, 70, 30, 90))),
+        ("video3d composite", "video3d", {}, (2, 32, 32, 6),
+         box(32, 32, (8, 20, 6, 26))),
     ]
     for name, regime, kw, shape, mask in modes:
         opt, path = nets[regime]
@@ -694,16 +781,13 @@ def inference_parity(torch, np, Opt, step_mod, tmp):
 
 
 def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
-              tmp, smi):
+              video3d, tmp, smi):
     """Phase 7: the loader, eval.metrics, the tiled and streaming evals and
     the server, at full width on the phase 5 checkpoints and corpus."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from video_filler_tpu_torch.eval import metrics
     from video_filler_tpu_torch.eval.common import load_generator
     from video_filler_tpu_torch.eval.stream import run_stream
     from video_filler_tpu_torch.eval.wholeim import run_wholeim
-    from video_filler_tpu_torch.ops.layers import Conv2d, ConvTranspose2d
     from video_filler_tpu_torch.serve import InpaintServer
 
     for k in fl.LAUNCHES:
@@ -713,17 +797,7 @@ def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
     j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
     net = j("checkpoints", "video_2_state.npz")
     vopt = from_args(split_regime(video)[1]).replace(net=net)
-    gen = load_generator(vopt, "video", net)
-    convs = [m.weight for m in gen.modules()
-             if isinstance(m, (Conv2d, ConvTranspose2d))]
-    bns = [t for n, t in gen.state_dict().items() if ".bn" in n]
-    if not all(w.dtype == torch.bfloat16 and w.is_cuda for w in convs):
-        fail("load_generator left a conv weight off the card or not bf16")
-    if not all(t.dtype == torch.float32 and t.is_cuda for t in bns):
-        fail("load_generator left a BatchNorm leaf off the card or not f32")
-    print(f"load_generator {os.path.basename(net)}: {len(convs)} conv "
-          f"weights bf16 and {len(bns)} BatchNorm leaves f32 on "
-          f"{convs[0].device}; eval mode {not gen.training}")
+    gen = loaded_generator(torch, load_generator, vopt, "video", net)
 
     t0 = time.perf_counter()
     q = metrics.evaluate(vopt, "video", n_batches=INFER_BATCHES, loaded=gen)
@@ -770,30 +844,7 @@ def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
                 for _ in range(64)]
         mask = np.zeros((128, 128, 1), np.uint8)
         mask[40:80, 30:90] = 1
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(64) as pool:
-            burst = list(pool.map(lambda c: post(srv.port, ctx=c, mask=mask),
-                                  ctxs))
-        dt = time.perf_counter() - t0
-        st = srv.stats()
-        print(f"server, video batch 64, 64 concurrent single-row requests: "
-              f"{64 / dt:.1f} items/s, p50 {st['p50_ms']:.1f} ms, p95 "
-              f"{st['p95_ms']:.1f} ms, avg_fill {st['avg_fill']:.3f} over "
-              f"{st['batches']} batches on {smi}")
-        n_diff = 0
-        for (code, out), c in zip(burst, ctxs):
-            code_solo, solo = post(srv.port, ctx=c, mask=mask)
-            if code != 200 or code_solo != 200:
-                fail(f"server: HTTP {code} / {code_solo}")
-            n_diff += u8_levels("server row against its solo result", out,
-                                solo)
-            if not np.array_equal(out[mask[..., 0] == 0],
-                                  c[mask[..., 0] == 0]):
-                fail("server: the composite changed a pixel outside the "
-                     "mask")
-        print(f"server: each of the 64 rows within one uint8 level of its "
-              f"solo result ({n_diff} values differ); the input kept "
-              f"outside the mask")
+        burst(np, srv, ctxs, mask, "video batch 64", smi)
         if post(srv.port, ctx=ctxs[0][:64])[0] != 400:
             fail("server: a wrongly shaped request was not refused with 400")
         with srv._stats_lock:          # the backlog full, as infer() fills it
@@ -850,8 +901,87 @@ def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
                   f"on {smi}; the input kept outside the mask")
         finally:
             srv.close()
+    video3d_inference(torch, np, metrics, load_generator, InpaintServer,
+                      from_args(split_regime(video3d)[1]),
+                      j("checkpoints", "video3d_1_state.npz"), smi)
     print(f"loss-kernel launches during inference: {dict(fl.LAUNCHES)} "
           f"(inference runs no hand-written kernel)")
+
+
+def loaded_generator(torch, load_generator, opt, regime, net):
+    """``load_generator`` on the card, checked: every conv weight (2-D or
+    3-D) bf16, every BatchNorm leaf f32, eval mode."""
+    from video_filler_tpu_torch.ops.layers import ConvBase
+    gen = load_generator(opt, regime, net)
+    convs = [m.weight for m in gen.modules() if isinstance(m, ConvBase)]
+    bns = [t for n, t in gen.state_dict().items() if "bn" in n]
+    if not all(w.dtype == torch.bfloat16 and w.is_cuda for w in convs):
+        fail("load_generator left a conv weight off the card or not bf16")
+    if not all(t.dtype == torch.float32 and t.is_cuda for t in bns):
+        fail("load_generator left a BatchNorm leaf off the card or not f32")
+    if gen.training:
+        fail("load_generator left G in train mode")
+    print(f"load_generator {os.path.basename(net)}: {len(convs)} conv "
+          f"weights ({convs[0].dim()}-D) bf16 and {len(bns)} BatchNorm "
+          f"leaves f32 on {convs[0].device}; eval mode")
+    return gen
+
+
+def burst(np, srv, ctxs, mask, label, smi):
+    """64 concurrent single-row requests: items/s and /stats; each row
+    within one uint8 level of its solo result, the input kept outside the
+    mask."""
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(ctxs)) as pool:
+        outs = list(pool.map(lambda c: post(srv.port, ctx=c, mask=mask),
+                             ctxs))
+    dt = time.perf_counter() - t0
+    st = srv.stats()
+    print(f"server, {label}, {len(ctxs)} concurrent single-row requests: "
+          f"{len(ctxs) / dt:.1f} items/s, p50 {st['p50_ms']:.1f} ms, p95 "
+          f"{st['p95_ms']:.1f} ms, avg_fill {st['avg_fill']:.3f} over "
+          f"{st['batches']} batches on {smi}")
+    n_diff = 0
+    for (code, out), c in zip(outs, ctxs):
+        code_solo, solo = post(srv.port, ctx=c, mask=mask)
+        if code != 200 or code_solo != 200:
+            fail(f"server {label}: HTTP {code} / {code_solo}")
+        n_diff += u8_levels(f"server {label} row against its solo result",
+                            out, solo)
+        if not np.array_equal(out[mask[..., 0] == 0], c[mask[..., 0] == 0]):
+            fail(f"server {label}: the composite changed a pixel outside "
+                 "the mask")
+    print(f"server, {label}: each row within one uint8 level of its solo "
+          f"result ({n_diff} values differ); the input kept outside the "
+          f"mask")
+
+
+def video3d_inference(torch, np, metrics, load_generator, InpaintServer,
+                      opt, net, smi):
+    """Phase 7 for the video3d checkpoint of phase 5: the loader,
+    ``bench_inference`` at batch 64 and the server under a burst."""
+    opt = opt.replace(net=net)
+    gen = loaded_generator(torch, load_generator, opt, "video3d", net)
+    s = metrics.bench_inference(opt, "video3d", iters=BENCH_ITERS,
+                                loaded=gen)
+    side = 4 * 2 ** opt.video3dLevels
+    print(f"bench_inference, video3d G, batch {opt.batchSize}, "
+          f"({opt.batchSize},{opt.predLen},{side},{side},{opt.nc}) clips, "
+          f"bf16, {BENCH_ITERS} iterations: {s['clips_per_sec']:.1f} "
+          f"clips/s, {s['frames_per_sec']:.1f} frames/s, batch latency "
+          f"{s['batch_latency_ms']:.2f} ms on {smi}")
+    del gen
+    srv = InpaintServer(opt, "video3d", net, max_delay_ms=5.0)
+    try:
+        rs = np.random.RandomState(9)
+        shape = (srv.in_h, srv.in_w, srv.in_c)     # folded clips
+        ctxs = [rs.randint(0, 256, shape, np.uint8) for _ in range(64)]
+        mask = np.zeros(shape[:2] + (1,), np.uint8)
+        mask[side // 4:side // 2, side // 8:side * 3 // 4] = 1
+        burst(np, srv, ctxs, mask, f"video3d batch {opt.batchSize}", smi)
+    finally:
+        srv.close()
 
 
 def main() -> None:
@@ -924,22 +1054,29 @@ def main() -> None:
 
         phase("7 inference")
         inference(torch, np, fl, Opt, from_args, split_regime, step_mod,
-                  run["video"], tmp, smi_line)
+                  run["video"], run["video3d"], tmp, smi_line)
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"
     main_geom = knum["video bf16"]
     err = {k: max(v[f"{k}_err"] for v in knum.values())
            for k in ("fwd", "bwd")}
+
+    def numbers(geom, k):
+        return {"ms": geom[k], "plain_ms": geom[f"{k}_plain"],
+                "bound_ms": geom[f"{k}_bound"], "cold_ms": geom[f"{k}_cold"],
+                "share": geom[f"{k}_bound"] / geom[f"{k}_cold"],
+                "variant": geom["variant"], "index32": geom["index32"],
+                "max_abs_err": geom[f"{k}_err"]}
+
     print(json.dumps({"kernels": [
         {"name": f"fused_weighted_mse_{k}", "route": "cuda", "source": rel,
-         "replaces": f"{ref}:{line}", "launches": run["launches"][k],
-         "max_abs_err": err[k], "ms": main_geom[k],
-         "plain_ms": main_geom[f"{k}_plain"],
-         "bound_ms": main_geom[f"{k}_bound"], "bound_by": "bytes",
-         "library_ms": None, "cold_ms": main_geom[f"{k}_cold"],
-         "share": main_geom[f"{k}_bound"] / main_geom[f"{k}_cold"],
-         "variant": main_geom["variant"]}
+         "replaces": f"{ref}:{line}", **numbers(main_geom, k),
+         "launches": run["launches"][k],
+         "launches_video3d": run["launches_video3d"][k],
+         "max_abs_err": err[k], "bound_by": "bytes", "library_ms": None,
+         "geometries": {name: numbers(geom, k) for name, geom in knum.items()
+                        if f"{k}_cold" in geom}}
         for k, line in (("fwd", 58), ("bwd", 69))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -185,6 +185,45 @@ def test_shape_mismatch_and_bf16_moments_fail_loudly(tmp_path):
         ckpt.restore_checkpoint(path, pstate)
 
 
+def test_5d_conv_leaves_convert_by_name_both_ways():
+    """A video3d tree (the JAX package's, at the JAX suite's 3-D widths):
+    its 5-D conv weights change layout, DHWIO -> OIDHW and (kt,kh,kw,cin,
+    cout) -> (cin,cout,kt,kh,kw), and keep the leaf name ``w`` on the way
+    back; the BN leaves cross unchanged.  The converter once passed every
+    non-4-D leaf through unchanged and named each non-4-D ``weight`` a BN
+    gamma (ROADMAP §C)."""
+    from video_filler_tpu.models import build_for_regime as jax_build
+    jg, jd = jax_build(JaxOpt(nef=8, ngf=8, ndf=8, nBottleneck=32,
+                              fineSize=32, video3dLevels=3, predLen=2),
+                       "video3d")
+    rs = np.random.RandomState(0)
+    for net in (jg, jd):
+        params, state = jax.tree.map(
+            lambda s: rs.randn(*s.shape).astype(np.float32),
+            jax.eval_shape(net.init, jax.random.PRNGKey(0)))
+        sd = convert.tree_to_state_dict(params, state)
+        conv0 = params["conv0"]["w"] if net is jd else \
+            params["enc"]["conv0"]["w"]
+        key = "conv0.weight" if net is jd else "enc.conv0.weight"
+        assert conv0.shape == (3, 4, 4, 3, 8 if net is jg else 4)
+        np.testing.assert_array_equal(sd[key].numpy(),
+                                      conv0.transpose(4, 3, 0, 1, 2))
+        if net is jg:
+            up1 = params["dec"]["up1"]["w"]
+            assert up1.shape == (3, 4, 4, 16, 8)
+            np.testing.assert_array_equal(sd["dec.up1.weight"].numpy(),
+                                          up1.transpose(3, 4, 0, 1, 2))
+            assert sd["dec.up0.weight"].shape == (32, 16, 2, 4, 4)
+            assert sd["enc.bn1.weight"].shape == (8,)
+        back_p, back_s = convert.state_dict_to_tree(sd)
+        for ours, ref in ((back_p, params), (back_s, state)):
+            la, ta = jax.tree.flatten(ours)
+            lb, tb = jax.tree.flatten(ref)
+            assert ta == tb
+            for x, y in zip(la, lb):
+                np.testing.assert_array_equal(x, y)
+
+
 def test_restore_latest_and_prune(tmp_path):
     _, pstate = _port_state()
     for e in (1, 2, 3, 4):

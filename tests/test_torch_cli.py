@@ -56,7 +56,7 @@ def test_cli_trains_two_steps(tmp_path):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("regime=video3d", "A.13"),
+    ("seqParallel=2", "A.14"),
     ("dataDevice=1", "A.10"), ("modelParallel=2", "A.14"),
     ("noiseGen=1", "A.8"), ("gradAccum=2", "A.8"), ("remat=1", "A.8"),
     ("displayServer=1", "A.9"), ("profileSteps=3", "A.9"),

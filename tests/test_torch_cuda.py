@@ -67,9 +67,21 @@ def _regime_operands(dev, geometry):
     """The loss kernels' operands in the 128x128 regimes (train/step.py):
     video with (B,H,W,1) mask weights, stride 0 on C; its composite, whose
     pred is f32 because a bf16 fake filled into the f32 clip promotes;
-    wholeim with full-size weights; logo with a 0-dim weight."""
+    wholeim with full-size weights; logo with a 0-dim weight; video3d's
+    (B,T,H,W,C) clips with (B,1,H,W,1) weights, stride 0 on T and C, and
+    their composite."""
     g = torch.Generator(device=dev).manual_seed(1)
     b = 16
+    if geometry.startswith("video3d"):
+        clip = torch.rand(b, 4, 128, 128, 3, generator=g, device=dev) * 2 - 1
+        fake = (torch.rand(b, 4, 128, 128, 3, generator=g, device=dev) * 2
+                - 1).bfloat16()
+        mask = (torch.rand(b, 1, 128, 128, 1, generator=g, device=dev)
+                < 0.3).float()
+        w = 0.999 * losses.mask_l2_weights(mask, 0.05)
+        if geometry == "video3d":
+            return fake, clip, w
+        return masks.fill_in(clip, mask, fake), clip, w
     clip = torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2 - 1
     fake = (torch.rand(b, 128, 128, 12, generator=g, device=dev) * 2
             - 1).bfloat16()
@@ -87,7 +99,8 @@ def _regime_operands(dev, geometry):
             torch.tensor(0.999, device=dev))
 
 
-REGIME_CASES = ["video", "video_composite", "wholeim", "logo"]
+REGIME_CASES = ["video", "video_composite", "wholeim", "logo", "video3d",
+                "video3d_composite"]
 
 
 def _check_against_plain(dev, pred, target, w):
@@ -118,8 +131,10 @@ def test_kernels_match_plain_version(cuda, shape, dtype, strided):
 @pytest.mark.parametrize("geometry", REGIME_CASES)
 def test_kernels_match_plain_version_on_the_regime_operands(cuda, geometry):
     pred, target, w = _regime_operands(cuda, geometry)
-    if geometry == "video_composite":
+    if geometry.endswith("composite"):
         assert pred.dtype == torch.float32
+    p = fl.plan(pred, target, w)
+    assert (p.variant, p.index32) == ("row", True)
     _check_against_plain(cuda, pred, target, w)
     assert torch.equal(fl.launch_forward(pred, target, w),
                        fl.launch_forward(pred, target, w))
@@ -233,16 +248,28 @@ def _tiny_batch(regime):
 
     if regime == "center":
         return {"real": images(3)}
+    if regime == "video3d":
+        mask = torch.zeros(4, 1, 32, 32, 1)
+        mask[..., 8:20, 6:26, :] = 1.0
+        return {"real": torch.from_numpy(rs.rand(4, 2, 32, 32, 3).astype(
+            np.float32) * 2 - 1), "mask": mask}
     mask = torch.zeros(4, 128, 128, 1)
     mask[:, 40:80, 30:90] = 1.0
     return {"real": images(6), "mask": mask}
+
+
+# the video3d family at the CPU suite's small depth (levels 3, 32x32 clips)
+V3D = dict(predLen=2, fineSize=32, video3dLevels=3)
 
 
 @pytest.mark.parametrize("regime,extra", [
     ("center", dict(overlapPred=4)),
     ("video", dict(predLen=2, weight_nomask=0.05)),
     ("video", dict(predLen=2, weight_nomask=0.0, wtgdl=0.1)),
-], ids=["center", "video", "video_composite_gdl"])
+    ("video3d", dict(V3D, weight_nomask=0.05)),
+    ("video3d", dict(V3D, weight_nomask=0.0, wtgdl=0.1)),
+], ids=["center", "video", "video_composite_gdl", "video3d",
+        "video3d_composite_gdl"])
 def test_tiny_step_on_the_card_matches_the_cpu(cuda, regime, extra):
     from video_filler_tpu_torch.train import step as tstep
     kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
@@ -282,17 +309,19 @@ def _tiny_checkpoint(tmp_path, regime, **kw):
     return opt, ckpt.save_checkpoint(str(tmp_path), regime, 1, state)
 
 
-INFER_REGIMES = {"center": (dict(overlapPred=4), 3),
-                 "video": (dict(predLen=2), 6), "wholeim": ({}, 27)}
+INFER_REGIMES = {"center": (dict(overlapPred=4), (128, 128, 3)),
+                 "video": (dict(predLen=2), (128, 128, 6)),
+                 "wholeim": ({}, (128, 128, 27)),
+                 "video3d": (V3D, (2, 32, 32, 3))}
 
 
 @pytest.mark.parametrize("regime", list(INFER_REGIMES))
 def test_load_generator_on_the_card_matches_the_cpu(cuda, tmp_path, regime):
     from video_filler_tpu_torch.eval.common import load_generator
-    kw, c = INFER_REGIMES[regime]
+    kw, shape = INFER_REGIMES[regime]
     opt, path = _tiny_checkpoint(tmp_path, regime, **kw)
     x = torch.from_numpy(np.random.RandomState(4).uniform(
-        -1, 1, (2, 128, 128, c)).astype(np.float32))
+        -1, 1, (2,) + shape).astype(np.float32))
     with torch.inference_mode():
         ref = load_generator(opt, regime, path, "cpu")(x)
         got = load_generator(opt.replace(device="cuda"), regime, path,
@@ -310,6 +339,7 @@ SERVE_MODES = {
     "video_frame_init": ("video", dict(frameH=180, frameW=240,
                                        withInit=True),
                          (2, 180, 240, 6), [(20, 70, 30, 90)]),
+    "video3d_composite": ("video3d", {}, (2, 32, 32, 6), [(8, 20, 6, 26)]),
 }
 
 
@@ -338,6 +368,6 @@ def test_serve_function_on_the_card_matches_the_cpu(cuda, tmp_path, mode):
             srv.close()
     diff = np.abs(out["cuda"].astype(int) - out["cpu"].astype(int))
     assert diff.max() <= 1
-    if regime == "video":
+    if regime in ("video", "video3d"):
         outside = np.broadcast_to(mask == 0, ctx.shape)
         np.testing.assert_array_equal(out["cuda"][outside], ctx[outside])

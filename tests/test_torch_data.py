@@ -147,4 +147,4 @@ def test_make_sampler_refusals_match(corpora):
         tpipe.make_sampler(Opt(device="cpu", DATA_ROOT=str(root / "corpus")),
                            "video", split="test")
     with pytest.raises(ValueError, match="unknown regime"):
-        tpipe.make_sampler(Opt(device="cpu"), "video3d")
+        tpipe.make_sampler(Opt(device="cpu"), "video4d")

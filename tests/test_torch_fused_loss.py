@@ -1,6 +1,8 @@
 """The port's fused weighted MSE (plain path on the CPU) against the JAX
 package: its Pallas kernel in interpret mode on shapes the Pallas gate
-accepts, and ``losses.weighted_mse`` on the center shape the gate rejects.
+accepts, and ``losses.weighted_mse`` on the shapes the gate rejects (the
+center crop, the 5-D video3d clips).  Then the kernels' host planner on
+the operands every train step gives them, 4-D and 5-D.
 
 Tolerances: forward rtol 1e-5; gradients rtol 1e-5 / atol 1e-7 (the JAX
 suite's own, tests/test_pallas.py); bf16 gradients one bf16 rounding apart
@@ -40,11 +42,13 @@ CASES = [
     ("full_weights", (2, 16, 16, 8), (2, 16, 16, 8), "pallas"),
     ("mask_weights", (2, 8, 16, 8), (2, 8, 16, 1), "pallas"),
     ("center_ring", (2, 64, 64, 3), None, "jnp"),
+    # a video3d clip, its (B,1,H,W,1) mask weights broadcast over T and C
+    ("clip_mask_weights", (2, 3, 16, 16, 3), (2, 1, 16, 16, 1), "jnp"),
 ]
 
 
 def _case(name, shape, wshape, seed):
-    p, t, w = _data(shape, wshape or (1, 1, 1, 1), seed)
+    p, t, w = _data(shape, wshape or (1,) * len(shape), seed)
     if wshape is None:
         w = _ring()
     return p, t, w
@@ -60,7 +64,8 @@ def _jax_loss(path):
                          ids=[c[0] for c in CASES])
 def test_forward_matches_jax(name, shape, wshape, path):
     p, t, w = _case(name, shape, wshape, 0)
-    assert pallas_supported(shape) == (path == "pallas")
+    assert (len(shape) == 4 and pallas_supported(shape)) == \
+        (path == "pallas")
     ref = float(_jax_loss(path)(jnp.asarray(p), jnp.asarray(t),
                                 jnp.asarray(w)))
     ours = fl.fused_weighted_mse(torch.from_numpy(p), torch.from_numpy(t),
@@ -140,8 +145,9 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     assert fl.LAUNCHES == before
 
 
-@pytest.mark.parametrize("bad", ["3d_pred", "int_pred", "f64_target",
-                                 "shape_mismatch", "weights_no_broadcast",
+@pytest.mark.parametrize("bad", ["3d_pred", "6d_pred", "int_pred",
+                                 "f64_target", "shape_mismatch",
+                                 "weights_no_broadcast", "weights_6d",
                                  "empty", "meta_device"])
 def test_rejects_what_the_kernel_does_not_take(bad):
     p = torch.zeros(2, 4, 4, 3)
@@ -149,6 +155,10 @@ def test_rejects_what_the_kernel_does_not_take(bad):
     w = torch.ones(1, 4, 4, 1)
     if bad == "3d_pred":
         p, t = p[0], t[0]
+    elif bad == "6d_pred":
+        p, t = p[None, None], t[None, None]
+    elif bad == "weights_6d":
+        w = w[None, None]
     elif bad == "int_pred":
         p = p.int()
     elif bad == "f64_target":
@@ -168,7 +178,8 @@ def test_rejects_what_the_kernel_does_not_take(bad):
 # --- the kernels' plan and byte count (pure Python, reached on the CPU) ---
 
 MAIN_PATH = [
-    # (name, regime, options, batch channels {key: C})
+    # (name, regime, options, batch {key: C of (B,128,128,C), or the shape
+    # after B})
     ("center", "center", dict(overlapPred=4), {"real": 3}),
     ("video", "video", dict(predLen=4, weight_nomask=0.05),
      {"real": 12, "mask": 1}),
@@ -177,6 +188,10 @@ MAIN_PATH = [
     ("wholeim", "wholeim", dict(weight_nomask=0.05),
      {"real": 12, "mask": 12, "masked": 27}),
     ("logo", "logo", {}, {"real": 3, "masked": 3}),
+    ("video3d", "video3d", dict(predLen=2, weight_nomask=0.05),
+     {"real": (2, 128, 128, 3), "mask": (1, 128, 128, 1)}),
+    ("video3d_composite", "video3d", dict(predLen=2, weight_nomask=0.0),
+     {"real": (2, 128, 128, 3), "mask": (1, 128, 128, 1)}),
 ]
 
 
@@ -191,13 +206,14 @@ def _step_operands(regime, extra, channels, dtype="bfloat16"):
     rs = np.random.RandomState(7)
     batch = {}
     for key, c in channels.items():
+        shape = (2,) + (c if isinstance(c, tuple) else (128, 128, c))
         if key == "mask":
-            m = np.zeros((2, 128, 128, c), np.float32)
-            m[:, 40:80, 30:90] = 1.0
+            m = np.zeros(shape, np.float32)
+            m[..., 40:80, 30:90, :] = 1.0
             batch[key] = torch.from_numpy(m)
         else:
             batch[key] = torch.from_numpy(
-                rs.uniform(-1, 1, (2, 128, 128, c)).astype(np.float32))
+                rs.uniform(-1, 1, shape).astype(np.float32))
     seen = []
 
     def spy(pred, target, weights):
@@ -225,14 +241,21 @@ def test_main_path_operands_plan_to_the_32bit_row_path(name, regime, extra,
     assert (p.variant, p.index32, p.reason) == ("row", True, "")
     assert pred.is_contiguous()   # G's output, through the channels-last
     assert p.vec == 16 // pred.element_size()  # decoder
-    if name == "center":
-        assert p.target_strides[:2] == (128 * 128 * 3, 384)   # the crop
-        assert p.weight_strides == (0, 64, 1, 0)               # the ring
-    if name == "video_composite":
+    if name == "center":                  # b and y cannot merge: the crop
+        assert p.target_strides[:3] == (0, 128 * 128 * 3, 384)
+        assert p.weight_strides == (0, 0, 64, 1, 0)            # the ring
+    if name.endswith("composite"):
         assert pred.dtype == torch.float32 and p.vec == 4
     assert p.weights_vec == (name == "wholeim")   # full-size weights
-    if name == "logo":
-        assert p.weight_strides == (0, 0, 0, 0)
+    if name == "logo":                    # every outer dim merges
+        assert p.shape == (1, 1, 2 * 128, 128, 3)
+        assert p.weight_strides == (0, 0, 0, 0, 0)
+    if name.startswith("video3d"):
+        # (B,T,H) stay three outer dims: the mask weights are 0 over T
+        assert pred.shape == (2, 2, 128, 128, 3)
+        assert w.shape == (2, 1, 128, 128, 1)
+        assert p.shape == (2, 2, 128, 128, 3)
+        assert p.weight_strides == (128 * 128, 0, 128, 1, 0)
 
 
 def _ragged_operands():
@@ -256,6 +279,12 @@ def _ragged_operands():
         "permuted_target": (torch.zeros(2, 4, 4, 8),
                             torch.zeros(2, 8, 4, 4).permute(0, 2, 3, 1),
                             torch.ones(1, 4, 4, 1)),
+        # a clip whose target is the unfolded (strided) view of a folded one
+        "unfolded_clip_target": (
+            torch.from_numpy(rs.randn(2, 3, 4, 4, 4).astype(np.float32)),
+            torch.from_numpy(rs.randn(2, 4, 4, 12).astype(np.float32))
+            .reshape(2, 4, 4, 3, 4).permute(0, 3, 1, 2, 4),
+            torch.from_numpy(rs.rand(2, 1, 4, 4, 1).astype(np.float32))),
     }
 
 
@@ -279,19 +308,22 @@ def _fdiv(n, d):
 
 def _walk_row_plan(p, pred, target, weights):
     """Gather the operands the way the row kernels address them, from the
-    plan's meta alone: tile t -> row r, column j0 -> (b, y); element
-    j0 + e -> (x, c) for the weights.  Returns (pred, target, weights) in
-    (B,H,W,C) order and each tile's gradient offset."""
+    plan's meta alone: tile i -> row r, column j0; r -> (q, y) -> (b, t);
+    element j0 + e -> (x, c) for the weights.  Returns (pred, target,
+    weights) in pred's shape and each tile's gradient offset."""
     meta = p.meta
-    b_, h, w_, c = meta[0:4]
+    b_, t_, h, w_, c = meta[0:5]
     vec = p.vec
     vecs = w_ * c // vec
-    assert meta[19:21] == fl.fast_div(vecs)
-    t = np.arange(b_ * h * vecs, dtype=np.int64)
-    r = _fdiv(t, vecs)
-    j0 = (t - r * vecs) * vec
-    b = _fdiv(r, h)
-    y = r - b * h
+    assert meta[23:31] == (*fl.fast_div(vecs), *fl.fast_div(h),
+                           *fl.fast_div(t_), *fl.fast_div(c))
+    i = np.arange(b_ * t_ * h * vecs, dtype=np.int64)
+    r = _fdiv(i, vecs)
+    j0 = (i - r * vecs) * vec
+    q = _fdiv(r, h)
+    y = r - q * h
+    b = _fdiv(q, t_)
+    t = q - b * t_
     j = j0[:, None] + np.arange(vec)[None, :]
     x = _fdiv(j, c)
     cc = j - x * c
@@ -300,14 +332,16 @@ def _walk_row_plan(p, pred, target, weights):
         base = tensor.storage_offset()
         return _flat(tensor)[torch.from_numpy(base + offsets)]
 
-    ps, ts, ws = meta[4:8], meta[8:12], meta[12:16]
-    got_p = gather(pred, (b * ps[0] + y * ps[1])[:, None] + j)
-    got_t = gather(target, (b * ts[0] + y * ts[1])[:, None] + j)
-    got_w = gather(weights, (b * ws[0] + y * ws[1])[:, None]
-                   + x * ws[2] + cc * ws[3])
-    shape = (b_, h, w_, c)
+    def row_base(st):
+        return (b * st[0] + t * st[1] + y * st[2])[:, None]
+
+    ps, ts, ws = meta[5:10], meta[10:15], meta[15:20]
+    got_p = gather(pred, row_base(ps) + j)
+    got_t = gather(target, row_base(ts) + j)
+    got_w = gather(weights, row_base(ws) + x * ws[3] + cc * ws[4])
+    shape = pred.shape
     return (got_p.reshape(shape), got_t.reshape(shape), got_w.reshape(shape),
-            r * (w_ * c) + j0, t * vec)
+            r * (w_ * c) + j0, i * vec)
 
 
 @pytest.mark.parametrize("name,regime,extra,channels", MAIN_PATH,
@@ -326,12 +360,12 @@ def test_row_plan_walk_reproduces_the_operands(name, regime, extra, channels):
 def test_generic_plan_strides_reproduce_the_operands(name):
     pred, target, w = _ragged_operands()[name]
     p = fl.plan(pred, target, w)
-    shape = p.shape
     for t, strides in ((pred, p.pred_strides), (target, p.target_strides),
                        (w, p.weight_strides)):
-        walked = torch.as_strided(_flat(t), shape, strides,
+        walked = torch.as_strided(_flat(t), p.shape, strides,
                                   t.storage_offset())
-        torch.testing.assert_close(walked, t.expand(shape), rtol=0, atol=0)
+        torch.testing.assert_close(walked.reshape(pred.shape),
+                                   t.expand(pred.shape), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 5, 6, 7, 12, 24, 27, 64, 96, 128,
@@ -364,6 +398,11 @@ BYTES = [
      25_165_828),
     ("center", (64, 64, 64, 3), torch.bfloat16, "crop", (1, 64, 64, 1),
      4_734_976, 6_307_840),
+    # video3d at predLen 4: the (B,1,H,W,1) weights count once, not per frame
+    ("video3d", (64, 4, 128, 128, 3), torch.bfloat16, None,
+     (64, 1, 128, 128, 1), 79_691_776, 104_857_600),
+    ("video3d_composite", (64, 4, 128, 128, 3), torch.float32, None,
+     (64, 1, 128, 128, 1), 104_857_600, 155_189_248),
 ]
 
 
@@ -380,3 +419,70 @@ def test_kernel_bytes(name, shape, dtype, crop, wshape, fwd, bwd):
     assert fl.kernel_bytes(pred, target, weights, "bwd") == bwd
     # a broadcast view of the weights counts at its stored size
     assert fl.kernel_bytes(pred, target, weights.expand(shape), "fwd") == fwd
+
+
+# --- the planner at the chip's geometries (meta tensors: shapes only) -----
+
+GEOMETRIES = {
+    # name: (pred, pred dtype, target, target view, weights, variant,
+    #        index32, weights_vec); the 4-D ones pinned as they planned before
+    #        the planner took 5-D operands
+    "center": ((64, 64, 64, 3), torch.bfloat16, (64, 128, 128, 3), "crop",
+               (1, 64, 64, 1), "row", True, False),
+    "video": ((64, 128, 128, 12), torch.bfloat16, (64, 128, 128, 12), None,
+              (64, 128, 128, 1), "row", True, False),
+    "video_composite": ((64, 128, 128, 12), torch.float32,
+                        (64, 128, 128, 12), None, (64, 128, 128, 1), "row",
+                        True, False),
+    "wholeim": ((64, 128, 128, 12), torch.bfloat16, (64, 128, 128, 12), None,
+                (64, 128, 128, 12), "row", True, True),
+    "logo": ((64, 128, 128, 3), torch.bfloat16, (64, 128, 128, 3), None, (),
+             "row", True, False),
+    "ragged": ((3, 7, 9, 5), torch.float32, (3, 7, 9, 5), None, (3, 7, 9, 1),
+               "generic", True, False),
+    "video3d": ((64, 4, 128, 128, 3), torch.bfloat16, (64, 4, 128, 128, 3),
+                None, (64, 1, 128, 128, 1), "row", True, False),
+    "video3d_composite": ((64, 4, 128, 128, 3), torch.float32,
+                          (64, 4, 128, 128, 3), None, (64, 1, 128, 128, 1),
+                          "row", True, False),
+}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_each_geometry_plans_to_its_path(name):
+    pshape, dtype, tshape, view, wshape, variant, index32, wvec = \
+        GEOMETRIES[name]
+    pred = _meta_tensor(pshape, dtype)
+    target = _meta_tensor(tshape)
+    if view == "crop":
+        target = target[:, 32:96, 32:96, :]
+    p = fl.plan(pred, target, _meta_tensor(wshape))
+    assert (p.variant, p.index32, p.weights_vec) == (variant, index32, wvec)
+    assert len(p.meta) == 31 and p.meta[:5] == p.shape
+    if name.startswith("video3d"):
+        # T-broadcast weights by stride: 0 over T and C, nothing expanded
+        assert p.weight_strides == (128 * 128, 0, 128, 1, 0)
+        assert p.meta[27:29] == fl.fast_div(4)        # the division by T
+
+
+def test_outer_dims_merge_only_where_every_operand_allows():
+    def plan_shape(pshape, tview, wshape):
+        pred = _meta_tensor(pshape)
+        return fl.plan(pred, tview(_meta_tensor(pshape)),
+                       _meta_tensor(wshape)).shape
+
+    same = lambda t: t  # noqa: E731
+    # all contiguous, scalar weights: (b, t, y) merge into one row index
+    assert plan_shape((2, 3, 4, 8, 4), same, ()) == (1, 1, 24, 8, 4)
+    # (B,1,H,W,1) weights keep t apart; b and t stay apart too
+    assert plan_shape((2, 3, 4, 8, 4), same, (2, 1, 4, 8, 1)) == \
+        (2, 3, 4, 8, 4)
+    # (1,T,H,W,C) weights: t and y merge, b stays
+    assert plan_shape((2, 3, 4, 8, 4), same, (1, 3, 4, 8, 4)) == \
+        (1, 2, 12, 8, 4)
+    # a 4-D image gets T = 1, dropped in the merge
+    assert plan_shape((2, 4, 8, 4), same, (1,)) == \
+        (1, 1, 8, 8, 4)
+    # a size-1 dim between two others never blocks their merge
+    assert plan_shape((2, 1, 4, 8, 4), same, (2, 1, 4, 8, 4)) == \
+        (1, 1, 8, 8, 4)

@@ -127,7 +127,8 @@ def test_reference_init_from_a_generator():
 
 
 @pytest.mark.parametrize("regime,kw,item", [
-    ("video3d", {}, "A.13"), ("center", {"conditionAdv": True}, "A.8"),
+    ("video3d", {"useBias": True}, "A.8"),
+    ("center", {"conditionAdv": True}, "A.8"),
     ("center", {"noiseGen": True}, "A.8"),
 ])
 def test_unported_regimes_and_options_raise(regime, kw, item):

@@ -439,7 +439,8 @@ def test_serving_and_metrics_import_no_jax():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(regime="video3d"), "A.13"), (dict(dataParallel=2), "A.14"),
+    (dict(regime="video3d", noiseGen=True), "video3d has neither"),
+    (dict(dataParallel=2), "A.14"),
     (dict(noiseGen=True), "A.8")], ids=["video3d", "dataParallel", "noiseGen"])
 def test_unported_serving_options_exit_naming_their_item(video_ckpt, kw,
                                                          item):

@@ -132,10 +132,14 @@ def flatten_generator(state) -> dict[str, np.ndarray]:
     return flat
 
 
-def _load(path: str) -> tuple[dict[str, np.ndarray], dict]:
+def _load(path: str, prefixes: tuple[str, ...] = ("",)
+          ) -> tuple[dict[str, np.ndarray], dict]:
+    """(the arrays whose keys start with one of ``prefixes``, meta).  The
+    others are not read: a video3d file holds ~3.4 GB, its G ~1.1 GB."""
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
-        stored = {k: data[k] for k in data.files if k != "__meta__"}
+        stored = {k: data[k] for k in data.files
+                  if k != "__meta__" and k.startswith(prefixes)}
     return stored, meta
 
 
@@ -269,7 +273,8 @@ def restore_subtree(path: str, module: torch.nn.Module,
     ``state_prefix`` (the reference's util.load of a single net, as the
     withInit cascade needs it, train_mycrit.lua:261-265).  D and the
     optimizer states in the file need not match.  Returns ``module``."""
-    stored, _ = _load(path)
+    stored, _ = _load(path, tuple(p + "[" for p in (prefix, state_prefix)
+                                  if p))
     _load_module(stored, module, prefix, state_prefix)
     return module
 

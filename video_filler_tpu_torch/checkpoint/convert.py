@@ -6,11 +6,14 @@ port's state-dict key is the dotted path with the leaf renamed:
     w -> weight    gamma -> weight    beta -> bias
     mean -> running_mean (state)      var -> running_var (state)
 
-Weights change layout (ops/layers.py): a conv weight HWIO -> OIHW by
-``transpose(3,2,0,1)``; a transposed conv, the layers named ``up*``,
-(k,k,cin,cout) -> (cin,cout,k,k) by ``transpose(2,3,0,1)``.  The same
-mappings are pinned by tests/test_step_golden.py and checkpoint/t7.py in the
-JAX package.
+Only the conv weights, leaf ``w``, change layout (ops/layers.py,
+ops/layers3d.py); BN leaves are 1-D and cross unchanged.  A conv weight
+HWIO -> OIHW by ``transpose(3,2,0,1)``, and DHWIO -> OIDHW by
+``transpose(4,3,0,1,2)``; a transposed conv, the layers named ``up*``,
+(k,k,cin,cout) -> (cin,cout,k,k) by ``transpose(2,3,0,1)``, and
+(kt,kh,kw,cin,cout) -> (cin,cout,kt,kh,kw) by ``transpose(3,4,0,1,2)``.
+The same mappings are pinned by tests/test_step_golden.py,
+tests/test_video3d.py and checkpoint/t7.py in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ import torch
 
 _PARAM_LEAF = {"w": "weight", "gamma": "weight", "beta": "bias"}
 _STATE_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+# JAX layout -> port layout of a conv weight, by (rank, transposed conv).
+_TO_TORCH = {(4, False): (3, 2, 0, 1), (4, True): (2, 3, 0, 1),
+             (5, False): (4, 3, 0, 1, 2), (5, True): (3, 4, 0, 1, 2)}
 
 
 def _is_transposed(path: tuple[str, ...]) -> bool:
@@ -34,32 +41,42 @@ def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
+def _conv_perm(path: tuple[str, ...], ndim: int) -> tuple[int, ...]:
+    """The permutation taking the conv weight at ``path`` from the JAX
+    layout to the port's."""
+    try:
+        return _TO_TORCH[(ndim, _is_transposed(path))]
+    except KeyError:
+        raise ValueError(f"conv weight {'.'.join(path)} has {ndim} dims; "
+                         "expected 4 (2-D) or 5 (3-D)") from None
+
+
 def to_torch_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
     """A JAX parameter leaf at ``path`` in the port's layout (a view)."""
-    if w.ndim != 4:
+    if path[-1] != "w":
         return w
-    return w.transpose(2, 3, 0, 1) if _is_transposed(path) \
-        else w.transpose(3, 2, 0, 1)
+    return w.transpose(_conv_perm(path, w.ndim))
 
 
 def to_jax_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
     """Inverse of ``to_torch_layout`` (a view)."""
-    if w.ndim != 4:
+    if path[-1] != "w":
         return w
-    return w.transpose(2, 3, 0, 1) if _is_transposed(path) \
-        else w.transpose(2, 3, 1, 0)
+    return w.transpose(tuple(int(i) for i in
+                             np.argsort(_conv_perm(path, w.ndim))))
 
 
 def jax_path(key: str, ndim: int) -> tuple[bool, tuple[str, ...]]:
     """(True for a BN running statistic, the leaf's path in the JAX params
-    or state tree) for a state-dict key whose tensor has ``ndim`` dims."""
+    or state tree) for a state-dict key whose tensor has ``ndim`` dims.  A
+    ``weight`` is a BN gamma when it is 1-D, a conv weight otherwise."""
     *scope, leaf = key.split(".")
     if leaf in ("running_mean", "running_var"):
         return True, (*scope, leaf[len("running_"):])
     if leaf == "bias":
         return False, (*scope, "beta")
     if leaf == "weight":
-        return False, (*scope, "w" if ndim == 4 else "gamma")
+        return False, (*scope, "gamma" if ndim == 1 else "w")
     raise KeyError(f"no JAX counterpart for state-dict key {key!r}")
 
 

@@ -7,31 +7,38 @@
 // The TPU version needs (8,128)-tiled 2-D operands, so it flattens to
 // (B*H, W*C) and broadcasts the weights to full size first.  These kernels
 // read every operand where it lies: the weights keep their zero strides
-// ((1,H,W,1) overlap ring, (B,H,W,1) masks, a 0-dim scalar) and the center
-// target stays a strided crop of the real batch.
+// ((1,H,W,1) overlap ring, (B,H,W,1) masks, the (B,1,H,W,1) clip mask
+// broadcast over T, a 0-dim scalar) and the center target stays a strided
+// crop of the real batch.  Operands are (B,H,W,C) images or (B,T,H,W,C)
+// clips (the temporal 3-D family); the planner sees both as (b, t, y, x, c)
+// with T = 1 for an image.
 //
 // Bound: device-memory bytes.  The pass does 3-4 flops per element, 0.25-0.5
 // flop per byte, so tensor cores and shared-memory tiling do not apply.  The
 // least traffic is each operand read once and the gradient written once:
 //   forward  N*sizeof(pred) + 4*N (target) + 4*stored(weights)
 //   backward the same + N*sizeof(pred) (gradient)
-// (N = B*H*W*C; stored(weights) counts the weights' own elements, not their
-// broadcast).  What the design does about it:
-//   * Row path.  The operands are seen as R = B*H rows of L = W*C elements,
-//     each operand's row base from its own (b, y) strides.  One thread takes
-//     a 16-byte tile of pred (8 bf16 or 4 f32), the matching target as float4
-//     loads through the read-only path, the weights as float4 loads when
+// (N = B*T*H*W*C; stored(weights) counts the weights' own elements, not
+// their broadcast: a clip's (B,1,H,W,1) weights are read once per frame, T
+// times their bytes, which the bound does not count).  What the design does
+// about it:
+//   * Row path.  The operands are seen as R = B*T*H rows of L = W*C
+//     elements, each operand's row base from its own (b, t, y) strides (the
+//     planner first merges outer dims that all operands lay out alike).
+//     One thread takes a 16-byte tile of pred (8 bf16 or 4 f32), the
+//     matching target as float4 loads through the read-only path, the
+//     weights as float4 loads when
 //     they are row-contiguous and else by their (x, c) strides.  Tile ->
-//     (row, column) -> (b, y) and column -> (x, c) are 32-bit divisions by
-//     multiplication with constants the planner computes
+//     (row, column) -> (b, t, y) and column -> (x, c) are 32-bit divisions
+//     by multiplication with constants the planner computes
 //     (ops/cuda/fused_loss.py `plan`), so no element pays a `%` or `/`.
 //     Each thread starts kUnroll tiles' loads before it uses any, so several
 //     16-byte loads per operand are in flight.  The backward writes the
-//     gradient, contiguous (B,H,W,C), with 16-byte stores.
+//     gradient, contiguous in pred's shape, with 16-byte stores.
 //   * Generic path for what the planner refuses (rows not contiguous,
-//     misaligned, ragged widths): each element's offsets from its (b,y,x,c)
-//     index through the strides, in 32-bit arithmetic where every offset
-//     fits and 64-bit otherwise.
+//     misaligned, ragged widths): each element's offsets from its
+//     (b,t,y,x,c) index through the strides, in 32-bit arithmetic where
+//     every offset fits and 64-bit otherwise.
 //   * Grid: the occupancy limit times the SM count (fixed per device), at
 //     most one block per 256 tiles.  The forward is one launch and stays
 //     deterministic: each block writes its partial sum, fences, takes an
@@ -60,17 +67,18 @@ constexpr int kUnroll = 4;  // row-path tiles whose loads one thread starts
 
 // meta[] layout, written by ops/cuda/fused_loss.py `Plan.meta`.
 enum Meta {
-  kSize = 0,           // B, H, W, C
-  kPredStride = 4,     // element strides of each operand over (b, y, x, c);
-  kTargetStride = 8,   // the weights expanded to pred's shape (0 where
-  kWeightStride = 12,  // broadcast)
-  kVariant = 16,       // 0 row, 1 generic
-  kIndex32 = 17,       // every offset fits in int32
-  kWeightsVec = 18,    // row path: weights row-contiguous, float4 loads
-  kVecDiv = 19,        // row path: (multiplier, shift) dividing by L / VEC,
-  kHeightDiv = 21,     // by H,
-  kChannelDiv = 23,    // by C
-  kMetaLen = 25,
+  kSize = 0,           // B, T, H, W, C (outer dims merged by the planner)
+  kPredStride = 5,     // element strides of each operand over
+  kTargetStride = 10,  // (b, t, y, x, c); the weights expanded to pred's
+  kWeightStride = 15,  // shape (0 where broadcast)
+  kVariant = 20,       // 0 row, 1 generic
+  kIndex32 = 21,       // every offset fits in int32
+  kWeightsVec = 22,    // row path: weights row-contiguous, float4 loads
+  kVecDiv = 23,        // row path: (multiplier, shift) dividing by L / VEC,
+  kHeightDiv = 25,     // by H,
+  kTimeDiv = 27,       // by T,
+  kChannelDiv = 29,    // by C
+  kMetaLen = 31,
 };
 
 // n / d for n < 2^31 as (umulhi(n, mul) + n) >> shift (round-up method; the
@@ -87,17 +95,18 @@ struct RowGeometry {
   unsigned tiles;  // R * L / VEC
   FastDiv vecs;    // tiles per row, L / VEC
   FastDiv height;  // H
+  FastDiv time;    // T
   FastDiv channels;
-  unsigned pred_sb, pred_sy, target_sb, target_sy;
-  unsigned weight_sb, weight_sy, weight_sx, weight_sc;
+  unsigned pred_sb, pred_st, pred_sy, target_sb, target_st, target_sy;
+  unsigned weight_sb, weight_st, weight_sy, weight_sx, weight_sc;
 };
 
 template <typename Index>
 struct Geometry {
-  Index size[4];
-  Index pred_stride[4];
-  Index target_stride[4];
-  Index weight_stride[4];
+  Index size[5];
+  Index pred_stride[5];
+  Index target_stride[5];
+  Index weight_stride[5];
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -167,22 +176,26 @@ template <typename P, bool WVEC>
 __device__ __forceinline__ void load_tile(const P* __restrict__ pred,
                                           const float* __restrict__ target,
                                           const float* __restrict__ weight,
-                                          const RowGeometry& g, unsigned t,
+                                          const RowGeometry& g, unsigned i,
                                           Tile<P>& tile) {
   constexpr int N = Tile<P>::N;
-  const unsigned r = quot(t, g.vecs);
-  const unsigned j0 = (t - r * g.vecs.d) * N;  // first element in the row
-  const unsigned b = quot(r, g.height);
-  const unsigned y = r - b * g.height.d;
+  const unsigned r = quot(i, g.vecs);          // tile i lies in row r
+  const unsigned j0 = (i - r * g.vecs.d) * N;  // first element in the row
+  const unsigned q = quot(r, g.height);        // r = q * H + y
+  const unsigned y = r - q * g.height.d;
+  const unsigned b = quot(q, g.time);          // q = b * T + t
+  const unsigned t = q - b * g.time.d;
   tile.pred = __ldg(reinterpret_cast<const uint4*>(
-      pred + (b * g.pred_sb + y * g.pred_sy + j0)));
-  const float* tp = target + (b * g.target_sb + y * g.target_sy + j0);
+      pred + (b * g.pred_sb + t * g.pred_st + y * g.pred_sy + j0)));
+  const float* tp =
+      target + (b * g.target_sb + t * g.target_st + y * g.target_sy + j0);
 #pragma unroll
-  for (int i = 0; i < N; i += 4) load4(tp + i, tile.target + i);
-  const float* wp = weight + (b * g.weight_sb + y * g.weight_sy);
+  for (int k = 0; k < N; k += 4) load4(tp + k, tile.target + k);
+  const float* wp =
+      weight + (b * g.weight_sb + t * g.weight_st + y * g.weight_sy);
   if (WVEC) {
 #pragma unroll
-    for (int i = 0; i < N; i += 4) load4(wp + j0 + i, tile.weight + i);
+    for (int k = 0; k < N; k += 4) load4(wp + j0 + k, tile.weight + k);
   } else {
 #pragma unroll
     for (int e = 0; e < N; ++e) {
@@ -306,7 +319,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < N; ++e)
           v[e] = (v[e] - tile[u].target[e]) * tile[u].weight[e] * scale;
-        // The gradient is contiguous (B,H,W,C): tile t starts at t * N.
+        // The gradient is contiguous in pred's shape: tile t starts at
+        // t * N.
         *reinterpret_cast<uint4*>(grad + static_cast<size_t>(t) * N) =
             pack(v);
       }
@@ -314,22 +328,28 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Row-major linear index over (B,H,W,C) -> element offsets of the operands.
+// Row-major linear index over (B,T,H,W,C) -> element offsets of the
+// operands.
+template <typename Index>
+__device__ __forceinline__ Index dot5(const Index (&st)[5], Index b, Index t,
+                                      Index y, Index x, Index c) {
+  return b * st[0] + t * st[1] + y * st[2] + x * st[3] + c * st[4];
+}
+
 template <typename Index>
 __device__ __forceinline__ void offsets(const Geometry<Index>& g, Index i,
                                         Index* po, Index* to, Index* wo) {
-  const Index c = i % g.size[3];
+  const Index c = i % g.size[4];
+  i /= g.size[4];
+  const Index x = i % g.size[3];
   i /= g.size[3];
-  const Index x = i % g.size[2];
+  const Index y = i % g.size[2];
   i /= g.size[2];
-  const Index y = i % g.size[1];
+  const Index t = i % g.size[1];
   const Index b = i / g.size[1];
-  *po = b * g.pred_stride[0] + y * g.pred_stride[1] + x * g.pred_stride[2] +
-        c * g.pred_stride[3];
-  *to = b * g.target_stride[0] + y * g.target_stride[1] +
-        x * g.target_stride[2] + c * g.target_stride[3];
-  *wo = b * g.weight_stride[0] + y * g.weight_stride[1] +
-        x * g.weight_stride[2] + c * g.weight_stride[3];
+  *po = dot5(g.pred_stride, b, t, y, x, c);
+  *to = dot5(g.target_stride, b, t, y, x, c);
+  *wo = dot5(g.weight_stride, b, t, y, x, c);
 }
 
 template <typename P, typename Index>
@@ -373,8 +393,8 @@ __global__ void __launch_bounds__(kThreads)
 
 RowGeometry make_row_geometry(const int64_t* meta, int vec) {
   RowGeometry g;
-  const int64_t rows = meta[kSize] * meta[kSize + 1];
-  const int64_t vecs = meta[kSize + 2] * meta[kSize + 3] / vec;
+  const int64_t rows = meta[kSize] * meta[kSize + 1] * meta[kSize + 2];
+  const int64_t vecs = meta[kSize + 3] * meta[kSize + 4] / vec;
   g.tiles = static_cast<unsigned>(rows * vecs);
   auto fast_div = [&](int at, int64_t d) {
     return FastDiv{static_cast<unsigned>(meta[at]),
@@ -382,23 +402,28 @@ RowGeometry make_row_geometry(const int64_t* meta, int vec) {
                    static_cast<unsigned>(d)};
   };
   g.vecs = fast_div(kVecDiv, vecs);
-  g.height = fast_div(kHeightDiv, meta[kSize + 1]);
-  g.channels = fast_div(kChannelDiv, meta[kSize + 3]);
-  g.pred_sb = static_cast<unsigned>(meta[kPredStride]);
-  g.pred_sy = static_cast<unsigned>(meta[kPredStride + 1]);
-  g.target_sb = static_cast<unsigned>(meta[kTargetStride]);
-  g.target_sy = static_cast<unsigned>(meta[kTargetStride + 1]);
-  g.weight_sb = static_cast<unsigned>(meta[kWeightStride]);
-  g.weight_sy = static_cast<unsigned>(meta[kWeightStride + 1]);
-  g.weight_sx = static_cast<unsigned>(meta[kWeightStride + 2]);
-  g.weight_sc = static_cast<unsigned>(meta[kWeightStride + 3]);
+  g.height = fast_div(kHeightDiv, meta[kSize + 2]);
+  g.time = fast_div(kTimeDiv, meta[kSize + 1]);
+  g.channels = fast_div(kChannelDiv, meta[kSize + 4]);
+  auto stride = [&](int at) { return static_cast<unsigned>(meta[at]); };
+  g.pred_sb = stride(kPredStride);
+  g.pred_st = stride(kPredStride + 1);
+  g.pred_sy = stride(kPredStride + 2);
+  g.target_sb = stride(kTargetStride);
+  g.target_st = stride(kTargetStride + 1);
+  g.target_sy = stride(kTargetStride + 2);
+  g.weight_sb = stride(kWeightStride);
+  g.weight_st = stride(kWeightStride + 1);
+  g.weight_sy = stride(kWeightStride + 2);
+  g.weight_sx = stride(kWeightStride + 3);
+  g.weight_sc = stride(kWeightStride + 4);
   return g;
 }
 
 template <typename Index>
 Geometry<Index> make_geometry(const int64_t* meta) {
   Geometry<Index> g;
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < 5; ++k) {
     g.size[k] = static_cast<Index>(meta[kSize + k]);
     g.pred_stride[k] = static_cast<Index>(meta[kPredStride + k]);
     g.target_stride[k] = static_cast<Index>(meta[kTargetStride + k]);
@@ -446,12 +471,17 @@ cudaError_t launch(Kernel kernel, int device, int64_t work, int cap,
   return cudaGetLastError();
 }
 
+int64_t elements(const int64_t* meta) {
+  int64_t n = 1;
+  for (int k = 0; k < 5; ++k) n *= meta[kSize + k];
+  return n;
+}
+
 template <typename P>
 cudaError_t forward(const P* pred, const float* target, const float* weight,
                     const int64_t* meta, float* workspace, int capacity,
                     float* out, int device, cudaStream_t s) {
-  const int64_t total =
-      meta[kSize] * meta[kSize + 1] * meta[kSize + 2] * meta[kSize + 3];
+  const int64_t total = elements(meta);
   const float n = static_cast<float>(total);
   unsigned* ticket = reinterpret_cast<unsigned*>(workspace + capacity);
   if (meta[kVariant] == 0) {
@@ -478,8 +508,7 @@ template <typename P>
 cudaError_t backward(const P* pred, const float* target, const float* weight,
                      const int64_t* meta, const float* gbar, P* grad,
                      int device, cudaStream_t s) {
-  const int64_t total =
-      meta[kSize] * meta[kSize + 1] * meta[kSize + 2] * meta[kSize + 3];
+  const int64_t total = elements(meta);
   const float n = static_cast<float>(total);
   if (meta[kVariant] == 0) {
     const RowGeometry g = make_row_geometry(meta, Tile<P>::N);
@@ -521,7 +550,7 @@ int vf_wmse_fwd(const void* pred, int pred_is_bf16, const float* target,
   return static_cast<int>(err);
 }
 
-// grad: B*H*W*C contiguous elements of pred's type, (B,H,W,C) row-major.
+// grad: contiguous elements of pred's type and shape, row-major.
 int vf_wmse_bwd(const void* pred, int pred_is_bf16, const float* target,
                 const float* weight, const int64_t* meta, const float* gbar,
                 void* grad, int device, void* stream) {

@@ -260,7 +260,8 @@ def wholeim_sampler(opt: Opt, corpus: VideoCorpus,
 
 
 def make_sampler(opt: Opt, regime: str, split: str = "train"):
-    """(sampler, dataset_size) for a 2-D regime from the Opt's data roots.
+    """(sampler, dataset_size) for a regime from the Opt's data roots;
+    video3d shares the video sampler (its preprocess unfolds the clip).
 
     ``split``: the folder dataset splits per class
     (data/dataset.lua:263-309); the video corpora reserve a held-out tail
@@ -277,7 +278,7 @@ def make_sampler(opt: Opt, regime: str, split: str = "train"):
                 "evalSplit='test' needs split < 100 to reserve a held-out "
                 "tail of the pair list (PairedIndex.split)")
         return logo_sampler(opt, paired, split=split), paired.size(split)
-    if regime not in ("video", "wholeim"):
+    if regime not in ("video", "video3d", "wholeim"):
         raise ValueError(f"unknown regime {regime!r}")
     mask = load_mask(opt.maskName) if opt.maskName else None
     corpus_kw = {}
@@ -293,7 +294,7 @@ def make_sampler(opt: Opt, regime: str, split: str = "train"):
         raise ValueError(
             "evalSplit='test' needs split < 100 to reserve a held-out tail "
             "range per video (VideoCorpus.split)")
-    if regime == "video":
+    if regime in ("video", "video3d"):
         return video_sampler(opt, corpus, mask, split), corpus.size(split)
     if mask is None:
         raise ValueError("wholeim regime requires maskName")

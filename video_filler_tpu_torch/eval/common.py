@@ -6,25 +6,23 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch import nn
 
 from video_filler_tpu_torch.checkpoint import restore_subtree
 from video_filler_tpu_torch.config import Opt, resolve_device
-from video_filler_tpu_torch.models import (
-    Generator,
-    build_generator,
-    specs_for_regime,
-)
-from video_filler_tpu_torch.ops.layers import Conv2d, ConvTranspose2d
+from video_filler_tpu_torch.models import build_generator, specs_for_regime
+from video_filler_tpu_torch.ops.layers import ConvBase
 
 T7_ITEM = "ROADMAP A.16, the Torch7 exchange"
 
 
 def generator_spec(opt: Opt, regime: str):
-    """The regime's GeneratorSpec; an option the port does not run yet
-    exits naming its ROADMAP item."""
+    """The regime's generator spec (a ``Video3DSpec`` for video3d); an
+    option the port does not run yet, or one the regime refuses, exits
+    naming it."""
     try:
         return specs_for_regime(opt, regime)[0]
-    except NotImplementedError as e:  # video3d, noiseGen, conditionAdv, ...
+    except (NotImplementedError, ValueError) as e:  # noiseGen, useBias, ...
         raise SystemExit(str(e)) from None
 
 
@@ -37,17 +35,17 @@ def gen_input(opt: Opt, ctx: torch.Tensor) -> torch.Tensor:
 
 
 def load_generator(opt: Opt, regime: str, net_path: str,
-                   device: torch.device | str | None = None) -> Generator:
+                   device: torch.device | str | None = None) -> nn.Module:
     """Just the generator of a training checkpoint (either package's file,
     a full state or a keepBest ``_best_`` file), in eval mode -- BN reads
     its running statistics, as ``net:evaluate()`` in every reference test
     script -- on ``device`` (default ``opt.device``), frozen.  D and the
     optimizer states in the file are ignored.
 
-    Weight residency: each conv weight is cast to the compute dtype once
-    here; the conv layers cast to it on every call anyway, so the numbers
-    are the same and the per-call cast becomes a no-op.  BN leaves stay
-    f32."""
+    Weight residency: each conv weight, 2-D or 3-D, is cast to the compute
+    dtype once here; the conv layers cast to it on every call anyway, so
+    the numbers are the same and the per-call cast becomes a no-op.  BN
+    leaves stay f32."""
     if net_path.endswith(".t7"):
         raise SystemExit(f"net=*.t7 (a Torch7 checkpoint) is not ported yet "
                          f"({T7_ITEM})")
@@ -57,7 +55,7 @@ def load_generator(opt: Opt, regime: str, net_path: str,
     restore_subtree(net_path, gen, ".params_g", ".state_g")
     gen = gen.to(device).eval().requires_grad_(False)
     for m in gen.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d)):
+        if isinstance(m, ConvBase):
             m.weight.data = m.weight.data.to(m.dtype)
     return gen
 

@@ -26,6 +26,7 @@ from video_filler_tpu_torch.eval.common import (
     generator_spec,
     load_generator,
 )
+from video_filler_tpu_torch.models import video3d_fine_size
 from video_filler_tpu_torch.ops import losses, masks
 from video_filler_tpu_torch.train.step import make_preprocess
 
@@ -35,7 +36,7 @@ def _prepare(opt: Opt, regime: str, batch):
     if regime == "center":
         ctx = masks.center_mask_fill(batch["real"], opt.overlapPred)
         return ctx, masks.extract_center(batch["real"]), None
-    if regime == "video":
+    if regime in ("video", "video3d"):
         ctx = masks.apply_logo_mask(batch["real"], batch["mask"],
                                     opt.maskValue)
         return ctx, batch["real"], batch["mask"]
@@ -92,7 +93,11 @@ def evaluate(opt: Opt, regime: str, n_batches: int = 8, seed: int = 222,
                 pred_full = pred
             l2s.append(losses.mse(pred_full, target).item())
             psnrs.append(losses.psnr(pred_full, target).item())
-            ssims.append(losses.ssim(pred_full, target).item())
+            if pred_full.dim() == 5:  # clips: frames into the batch for SSIM
+                ssims.append(losses.ssim(pred_full.flatten(0, 1),
+                                         target.flatten(0, 1)).item())
+            else:
+                ssims.append(losses.ssim(pred_full, target).item())
             if regime == "center":
                 hole_l2s.append(losses.mse(hole_pred, hole_target).item())
             elif mask is not None:
@@ -121,11 +126,17 @@ def bench_inference(opt: Opt, regime: str, iters: int = 50,
                     loaded=None) -> dict:
     """Generator inference throughput on a synthetic batch of
     ``opt.batchSize``: one warm-up forward, then ``iters`` forwards between
-    two device synchronizations, timed on the host clock."""
+    two device synchronizations, timed on the host clock.  video3d takes
+    (B,T,S,S,nc) clips, S = 4 * 2**video3dLevels; the 2-D regimes
+    (B,128,128,nc_in)."""
     device = resolve_device(opt)
     gen = loaded if loaded is not None else load_generator(opt, regime,
                                                            opt.net)
-    shape = (opt.batchSize, 128, 128, generator_spec(opt, regime).nc_in)
+    if regime == "video3d":
+        side = video3d_fine_size(opt)
+        shape = (opt.batchSize, opt.predLen, side, side, opt.nc)
+    else:
+        shape = (opt.batchSize, 128, 128, generator_spec(opt, regime).nc_in)
     x = torch.from_numpy(np.random.RandomState(0).rand(*shape)
                          .astype(np.float32) * 2 - 1).to(device)
     with torch.inference_mode():

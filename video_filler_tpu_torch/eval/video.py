@@ -5,7 +5,8 @@ reference's ImageMagick ``convert``, test_vid.lua:145-147).
 
 CLI:
     python -m video_filler_tpu_torch.eval.video device=cuda DATA_ROOT=... \\
-        maskName=... net=checkpoints/<name>_<epoch>_state.npz predLen=4
+        maskName=... net=checkpoints/<name>_<epoch>_state.npz predLen=4 \\
+        [regime=video3d]
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ from video_filler_tpu_torch.utils import save_gif, save_png
 
 
 def unfold_frames(clip: np.ndarray, nc: int) -> np.ndarray:
-    """Channel-folded clips (B,H,W,nc*T) as a frame sequence (B*T,H,W,nc)."""
+    """Channel-folded clips (B,H,W,nc*T) or temporal ones (B,T,H,W,nc) as a
+    frame sequence (B*T,H,W,nc)."""
+    if clip.ndim == 5:
+        return clip.reshape((-1,) + clip.shape[2:])
     b, h, w, c = clip.shape
     return clip.reshape(b, h, w, c // nc, nc).transpose(
         0, 3, 1, 2, 4).reshape(-1, h, w, nc)
@@ -35,12 +39,13 @@ def unfold_frames(clip: np.ndarray, nc: int) -> np.ndarray:
 def run_test_vid(opt: Opt, out_dir: str | None = None,
                  regime: str = "video", draws: dict | None = None
                  ) -> dict[str, np.ndarray]:
-    """The preprocess's random decisions come from
+    """The channel-folded 2-D regime or the temporal 3-D one.  The
+    preprocess's random decisions come from
     ``torch.Generator().manual_seed(manualSeed)``, or from ``draws`` (the
     video preprocess's decision dict, train/step.py ``video_draws``)."""
-    if regime != "video":
-        raise SystemExit(f"eval.video ports regime=video only; {regime!r} "
-                         "is not ported yet (ROADMAP A.13)")
+    if regime not in ("video", "video3d"):
+        raise SystemExit(f"eval.video handles regime=video|video3d, got "
+                         f"{regime!r}")
     device = resolve_device(opt)
     gen = load_generator(opt, regime, opt.net)
     rs = np.random.RandomState(opt.manualSeed or None)

@@ -30,7 +30,6 @@ from video_filler_tpu_torch.ops.layers import (
     Conv2d,
     ConvTranspose2d,
     Sequential,
-    reset_parameters,
 )
 
 
@@ -164,21 +163,6 @@ class Discriminator(Sequential):
         return y.reshape(y.shape[0])
 
 
-def build_generator(spec: GeneratorSpec, gen: torch.Generator) -> Generator:
-    """A generator on the CPU with the reference init drawn from ``gen``."""
-    net = Generator(spec)
-    reset_parameters(net, gen)
-    return net
-
-
-def build_discriminator(spec: DiscriminatorSpec,
-                        gen: torch.Generator) -> Discriminator:
-    """A discriminator on the CPU with the reference init drawn from ``gen``."""
-    net = Discriminator(spec)
-    reset_parameters(net, gen)
-    return net
-
-
 def specs_for_regime(opt: Opt, regime: str
                      ) -> tuple[GeneratorSpec, DiscriminatorSpec]:
     """(GeneratorSpec, DiscriminatorSpec) for a 2-D regime, mirroring the
@@ -187,11 +171,9 @@ def specs_for_regime(opt: Opt, regime: str
       video   -> train_vid_weighted   (nc*predLen channels, 128 out/in)
       logo    -> train_logo_withmask  (128 out with an ngf//2 mid stage)
       wholeim -> train_wholeim_input  (patch-array in, 2x2 patches out)"""
-    if regime == "video3d":
-        raise NotImplementedError(
-            "regime='video3d' is not ported yet (ROADMAP A.13)")
     if regime not in ("center", "video", "logo", "wholeim"):
-        raise ValueError(f"unknown regime {regime!r}")
+        raise ValueError(f"unknown regime {regime!r} for the 2-D models "
+                         "(video3d: models/context_encoder_3d.py)")
     if opt.conditionAdv or opt.noiseGen:
         raise NotImplementedError(
             "conditionAdv and noiseGen are not ported yet (ROADMAP A.8)")

@@ -7,13 +7,14 @@ for Hopper (``csrc/fused_loss.cu``) behind a ``torch.autograd.Function``.
 
 The op is bound by device-memory bytes (``kernel_bytes``): each direction
 reads pred, target and the weights once, and the backward writes one
-gradient.  ``plan`` decides, on the host, how the kernels walk the operands:
-the vectorised 32-bit row path (16-byte loads, no per-element division)
-where the operands allow it, which every geometry of the train step does,
-and else the generic strided path.  The weights keep their broadcast (zero)
-strides and the center target stays a strided crop; nothing is copied.  The
-forward is one launch that sums in a fixed order, so repeated calls are
-bit-identical.
+gradient.  The operands are 4-D images (B,H,W,C) or 5-D clips (B,T,H,W,C).
+``plan`` decides, on the host, how the kernels walk them: the vectorised
+32-bit row path (16-byte loads, no per-element division) where the operands
+allow it, which every geometry of the train step does, and else the generic
+strided path.  The weights keep their broadcast (zero) strides -- the
+(B,1,H,W,1) clip mask over T included -- and the center target stays a
+strided crop; nothing is copied.  The forward is one launch that sums in a
+fixed order, so repeated calls are bit-identical.
 
 Semantics match ``video_filler_tpu.ops.losses.weighted_mse``: f32
 accumulation, gradient with respect to ``pred`` only (target and weights are
@@ -40,7 +41,7 @@ LAUNCHES = {"fwd": 0, "bwd": 0}
 VARIANT_LAUNCHES = {"row": 0, "generic": 0}
 
 _THREADS = 256            # kThreads in fused_loss.cu
-_META_LEN = 25            # kMetaLen in fused_loss.cu
+_META_LEN = 31            # kMetaLen in fused_loss.cu
 _INT32_MAX = 2 ** 31 - 1
 _PRED_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -64,8 +65,9 @@ def weighted_mse_grad_reference(pred: torch.Tensor, target: torch.Tensor,
 
 def _validate(pred: torch.Tensor, target: torch.Tensor,
               weights: torch.Tensor) -> None:
-    if pred.dim() != 4:
-        raise ValueError(f"pred must be 4-D (B,H,W,C), got {tuple(pred.shape)}")
+    if pred.dim() not in (4, 5):
+        raise ValueError(f"pred must be 4-D (B,H,W,C) or 5-D (B,T,H,W,C), "
+                         f"got {tuple(pred.shape)}")
     if pred.numel() == 0:
         raise ValueError("pred is empty")
     if pred.dtype not in _PRED_DTYPES:
@@ -77,7 +79,7 @@ def _validate(pred: torch.Tensor, target: torch.Tensor,
         raise TypeError(f"target and weights must be float32, got "
                         f"{target.dtype} and {weights.dtype}")
     try:
-        ok = (weights.dim() <= 4 and torch.broadcast_shapes(
+        ok = (weights.dim() <= pred.dim() and torch.broadcast_shapes(
             weights.shape, pred.shape) == pred.shape)
     except RuntimeError:  # incompatible sizes
         ok = False
@@ -128,35 +130,39 @@ def fast_div(d: int) -> tuple[int, int]:
 class Plan:
     """How the kernels walk one set of operands.
 
-    The operands are R = B*H rows of L = W*C elements.  Strides are in
-    elements over (b, y, x, c), the weights' after broadcasting to pred's
-    shape (0 on a broadcast dim); a dim of size 1 gets stride 0.
-    ``variant`` "row": pred and target are contiguous within a row, every
-    base and row stride 16-byte aligned, L a multiple of ``vec`` (pred
-    elements per 16 bytes) and every offset fits in int32; ``weights_vec``:
-    the weights are too, and load as float4.  Else "generic"; ``reason``
-    says why."""
+    ``shape`` is (b, t, y, x, c): three outer dims, then a row of L = x*c
+    elements; R = b*t*y rows.  A 4-D (B,H,W,C) operand set has T = 1.  The
+    outer dims are merged where all three operands allow it (``_merge``) and
+    padded in front with size-1 dims, so a row splits into (b, t, y) by at
+    most two divisions.  Strides are in elements, the weights' after
+    broadcasting to pred's shape (0 on a broadcast dim); a dim of size 1
+    gets stride 0.  ``variant`` "row": pred and target are contiguous within
+    a row, every base and outer stride 16-byte aligned, L a multiple of
+    ``vec`` (pred elements per 16 bytes) and every offset fits in int32;
+    ``weights_vec``: the weights are too, and load as float4.  Else
+    "generic"; ``reason`` says why."""
     variant: str
     index32: bool
-    shape: tuple[int, int, int, int]
-    pred_strides: tuple[int, int, int, int]
-    target_strides: tuple[int, int, int, int]
-    weight_strides: tuple[int, int, int, int]
+    shape: tuple[int, int, int, int, int]
+    pred_strides: tuple[int, int, int, int, int]
+    target_strides: tuple[int, int, int, int, int]
+    weight_strides: tuple[int, int, int, int, int]
     vec: int
     weights_vec: bool
     reason: str = ""
 
     @property
     def row_len(self) -> int:
-        return self.shape[2] * self.shape[3]
+        return self.shape[3] * self.shape[4]
 
     @functools.cached_property
     def meta(self) -> tuple[int, ...]:
         """The int64 values csrc/fused_loss.cu reads (its enum Meta)."""
-        divs = (0, 0, 0, 0, 0, 0)
+        divs = (0,) * 8
         if self.variant == "row":
             divs = (*fast_div(self.row_len // self.vec),
-                    *fast_div(self.shape[1]), *fast_div(self.shape[3]))
+                    *fast_div(self.shape[2]), *fast_div(self.shape[1]),
+                    *fast_div(self.shape[4]))
         meta = (*self.shape, *self.pred_strides, *self.target_strides,
                 *self.weight_strides, int(self.variant == "generic"),
                 int(self.index32), int(self.weights_vec), *divs)
@@ -168,29 +174,55 @@ def _strides(t: torch.Tensor) -> tuple[int, ...]:
     return tuple(st if s > 1 else 0 for s, st in zip(t.shape, t.stride()))
 
 
+def _merge(shape, strides):
+    """The outer (b, t, y) dims with each pair merged whose strides merge
+    for every operand (outer stride = inner size * inner stride), size-1
+    dims dropped, padded in front to three.  ``strides``: one 5-tuple per
+    operand.  Returns (shape, strides) of the same form."""
+    dims = [(shape[k], tuple(s[k] for s in strides)) for k in range(3)]
+    merged = []                                   # innermost first
+    for size, st in reversed(dims):
+        if size == 1:
+            continue
+        if merged and all(a == merged[-1][0] * b
+                          for a, b in zip(st, merged[-1][1])):
+            inner, inner_st = merged.pop()
+            merged.append((size * inner, inner_st))
+        else:
+            merged.append((size, st))
+    merged += [(1, (0,) * len(strides))] * (3 - len(merged))
+    outer = merged[::-1]
+    return (tuple(size for size, _ in outer) + tuple(shape[3:]),
+            [tuple(st[i] for _, st in outer) + tuple(s[3:])
+             for i, s in enumerate(strides)])
+
+
 def _row_contiguous(strides, shape) -> bool:
     """Element j of a row (x = j // C, c = j % C) lies at offset j."""
-    w, c = shape[2:]
-    return strides[2:] == (c if w > 1 else 0, 1 if c > 1 else 0)
+    w, c = shape[3:]
+    return strides[3:] == (c if w > 1 else 0, 1 if c > 1 else 0)
 
 
 def _aligned(t: torch.Tensor, strides) -> bool:
-    """16-byte aligned base and (b, y) row strides."""
+    """16-byte aligned base and outer (b, t, y) strides."""
     size = t.element_size()
     return (t.data_ptr() % 16 == 0
-            and all(st * size % 16 == 0 for st in strides[:2]))
+            and all(st * size % 16 == 0 for st in strides[:3]))
 
 
 def plan(pred: torch.Tensor, target: torch.Tensor,
          weights: torch.Tensor) -> Plan:
     """Choose the kernel path for validated operands (see ``Plan``)."""
     shape = tuple(pred.shape)
-    c = shape[3]
     w = weights.expand(shape)
-    ps, ts, ws = _strides(pred), _strides(target), _strides(w)
+    strides = [_strides(t) for t in (pred, target, w)]
+    if len(shape) == 4:                           # an image: T = 1
+        shape = shape[:1] + (1,) + shape[1:]
+        strides = [s[:1] + (0,) + s[1:] for s in strides]
+    shape, (ps, ts, ws) = _merge(shape, strides)
     n = pred.numel()
-    max_offset = max(sum((s - 1) * st for s, st in zip(shape, strides))
-                     for strides in (ps, ts, ws))
+    max_offset = max(sum((s - 1) * st for s, st in zip(shape, sts))
+                     for sts in (ps, ts, ws))
     index32 = n <= _INT32_MAX and max_offset <= _INT32_MAX
     vec = 16 // pred.element_size()
     weights_vec = _row_contiguous(ws, shape) and _aligned(w, ws)
@@ -198,10 +230,10 @@ def plan(pred: torch.Tensor, target: torch.Tensor,
         (index32, "an offset needs 64 bits"),
         (_row_contiguous(ps, shape), "pred is not contiguous within a row"),
         (_row_contiguous(ts, shape), "target is not contiguous within a row"),
-        (shape[2] * c % vec == 0, f"the row length is not a multiple of "
-                                  f"{vec}"),
+        (shape[3] * shape[4] % vec == 0, f"the row length is not a multiple "
+                                         f"of {vec}"),
         (_aligned(pred, ps) and _aligned(target, ts),
-         "a base or row stride is not 16-byte aligned"),
+         "a base or outer stride is not 16-byte aligned"),
     ]
     reason = next((why for ok, why in checks if not ok), "")
     return Plan(variant="generic" if reason else "row", index32=index32,
@@ -286,7 +318,7 @@ def launch_backward(pred: torch.Tensor, target: torch.Tensor,
                     weights: torch.Tensor, gbar: torch.Tensor,
                     p: Plan | None = None) -> torch.Tensor:
     """Run the backward kernel; returns a contiguous gradient of pred's shape
-    and dtype.  ``gbar`` (the upstream scalar) stays on the device."""
+    and dtype (its row-major order is the plan's row order).  ``gbar`` (the upstream scalar) stays on the device."""
     lib = _lib()
     w = weights.expand(pred.shape)
     p = p or plan(pred, target, weights)
@@ -328,8 +360,9 @@ def fused_weighted_mse(pred: torch.Tensor, target: torch.Tensor,
     """``sum(weights * (pred - target)**2) / pred.numel()`` as a 0-dim f32
     tensor, differentiable with respect to ``pred``.
 
-    pred: (B,H,W,C) float32 or bfloat16, any strides.  target: float32 of
-    pred's shape, any strides.  weights: float32, broadcastable to pred's
-    shape (e.g. (1,H,W,1) or a scalar tensor)."""
+    pred: (B,H,W,C) or (B,T,H,W,C), float32 or bfloat16, any strides.
+    target: float32 of pred's shape, any strides.  weights: float32,
+    broadcastable to pred's shape (e.g. (1,H,W,1), (B,1,H,W,1) or a scalar
+    tensor)."""
     _validate(pred, target, weights)
     return _FusedWeightedMSE.apply(pred, target, weights)

@@ -64,33 +64,37 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         training=training, momentum=momentum, eps=eps)
 
 
-class Conv2d(nn.Module):
+class ConvBase(nn.Module):
+    """A bias-free conv: its ``weight`` (the port's layout), stride,
+    padding and compute dtype, and the reference's N(0, 0.02) init.  The
+    2-D and 3-D (ops/layers3d.py) convs derive from it."""
 
-    def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
-                 padding: int = 1, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, shape: tuple[int, ...], stride, padding,
+                 dtype: torch.dtype):
         super().__init__()
         self.stride, self.padding, self.dtype = stride, padding, dtype
-        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(shape))
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         with torch.no_grad():
             self.weight.normal_(0.0, W_STD, generator=gen)
+
+
+class Conv2d(ConvBase):
+
+    def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
+                 padding: int = 1, dtype: torch.dtype = torch.bfloat16):
+        super().__init__((cout, cin, kernel, kernel), stride, padding, dtype)
 
     def forward(self, x):
         return conv2d(x, self.weight, self.stride, self.padding, self.dtype)
 
 
-class ConvTranspose2d(nn.Module):
+class ConvTranspose2d(ConvBase):
 
     def __init__(self, cin: int, cout: int, kernel: int = 4, stride: int = 2,
                  padding: int = 1, dtype: torch.dtype = torch.bfloat16):
-        super().__init__()
-        self.stride, self.padding, self.dtype = stride, padding, dtype
-        self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
-
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        with torch.no_grad():
-            self.weight.normal_(0.0, W_STD, generator=gen)
+        super().__init__((cin, cout, kernel, kernel), stride, padding, dtype)
 
     def forward(self, x):
         return conv2d_transpose(x, self.weight, self.stride, self.padding,
@@ -135,5 +139,5 @@ class Sequential(nn.ModuleDict):
 def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:
     """Reference init of every layer under ``module``, in definition order."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, ConvTranspose2d, BatchNorm)):
+        if isinstance(m, (ConvBase, BatchNorm)):
             m.reset_parameters(gen)

@@ -18,6 +18,10 @@ API (numpy .npz bodies):
                   -> {"out": uint8 of ctx's shape}:
                    video/logo: G's output inside the mask, ctx outside (the
                      whole G output without a mask);
+                   video3d: the same on channel-folded clips (S,S,nc*predLen),
+                     S = 4*2**video3dLevels; the clip is unfolded to
+                     (T,S,S,nc) around the 3-D G and its prediction folded
+                     back;
                    center: the predicted 64² hole pasted into ctx, the
                      overlapPred ring kept from ctx (demo.lua:73-76); masks
                      are refused;
@@ -73,11 +77,13 @@ import torch.nn.functional as F
 from video_filler_tpu_torch.config import Opt, from_args, resolve_device
 from video_filler_tpu_torch.eval.common import generator_spec, load_generator
 from video_filler_tpu_torch.eval.tiling import VFLIP_TOP_TILES
+from video_filler_tpu_torch.models import video3d_fine_size
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.ops.image import (
     denormalize_to_uint8,
     normalize_uint8,
 )
+from video_filler_tpu_torch.ops.layers3d import fold_time, unfold_time
 from video_filler_tpu_torch.utils.httpbase import QuietHandler
 
 REQUEST_TIMEOUT_S = 60.0  # the client's wait; queued entries older than
@@ -202,21 +208,29 @@ class InpaintServer:
         if opt.dataParallel > 1:
             raise SystemExit("serving dataParallel>1 is not ported yet "
                              "(ROADMAP A.14)")
-        gspec = generator_spec(opt, regime)  # video3d, noiseGen: exit
+        gspec = generator_spec(opt, regime)  # noiseGen, ...: exit
         self.device = resolve_device(opt)
         self.batch = int(opt.batchSize)
         self.fs = fs = int(opt.fineSize)
-        # Composite inside the mask needs output geometry == input (video,
-        # logo).  center predicts the 64² hole, pasted into a fixed region
-        # of ctx; patch-mode wholeim predicts other channels: raw output.
-        self.composable = (gspec.nc_in == gspec.nc_out
-                           and gspec.out_size == fs)
+        video3d = regime == "video3d"
+        if video3d:
+            # The video regime's wire format: channel-folded uint8 clips
+            # (B,S,S,nc*predLen), unfolded around the 3-D G.
+            self.fs = fs = video3d_fine_size(opt)
+            self.composable, self.in_c = True, opt.nc * opt.predLen
+        else:
+            # Composite inside the mask needs output geometry == input
+            # (video, logo).  center predicts the 64² hole, pasted into a
+            # fixed region of ctx; patch-mode wholeim predicts other
+            # channels: raw output.
+            self.composable = (gspec.nc_in == gspec.nc_out
+                               and gspec.out_size == fs)
+            self.in_c = gspec.nc_in
         self.center_paste = regime == "center"
         full = opt.frameH > 0 or opt.frameW > 0
         self.wholeim_frame = regime == "wholeim" and full
         self.video_frame = regime == "video" and full
         self.in_h = self.in_w = fs
-        self.in_c = gspec.nc_in
         if full and (opt.frameH < fs or opt.frameW < fs):
             raise SystemExit(
                 f"frameH/frameW must both be >= fineSize {fs} (got "
@@ -243,10 +257,14 @@ class InpaintServer:
             self._device_fn = _wholeim_frame_fn(opt, gen, fs)
         else:
             composable, center_paste = self.composable, self.center_paste
+            frames = opt.predLen
 
             def fn(ctx_u8, mask_u8):
                 x = normalize_uint8(ctx_u8)
-                out = gen(x).float()
+                if video3d:
+                    out = fold_time(gen(unfold_time(x, frames)).float())
+                else:
+                    out = gen(x).float()
                 if composable:
                     # clients often send 0/255 masks: nonzero = in the hole
                     m = (mask_u8 > 0).float()

@@ -12,7 +12,7 @@ Checkpoints are the JAX package's files (checkpoint/ckpt.py): saved every
 ``checkpointEvery`` epochs (pruned to ``keepCheckpoints`` before each save,
 written on a background thread), on SIGTERM at the next step boundary, and
 restored by ``autoResume`` or ``loadName``+``loadIter``.  ``withInit`` with
-``initName`` runs a checkpoint's generator ahead of G (video only).
+``initName`` runs a checkpoint's generator ahead of G (video, video3d).
 
 CLI (env-var names match the reference; see config.py):
     python -m video_filler_tpu_torch.train regime=video DATA_ROOT=/data \\
@@ -60,7 +60,11 @@ from video_filler_tpu_torch.config import (
 from video_filler_tpu_torch.data.pipeline import DataLoader, make_sampler
 from video_filler_tpu_torch.eval.common import live_generator
 from video_filler_tpu_torch.eval.metrics import evaluate
-from video_filler_tpu_torch.models import build_generator, specs_for_regime
+from video_filler_tpu_torch.models import (
+    build_generator,
+    check_fine_size,
+    specs_for_regime,
+)
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.train.step import (
     init_train_state,
@@ -81,8 +85,9 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
     ROADMAP item that brings it."""
     out = []
     try:
-        specs_for_regime(opt, regime)
-    except NotImplementedError as e:  # video3d, conditionAdv, noiseGen, ...
+        specs_for_regime(opt, regime)      # conditionAdv, noiseGen, useBias
+        check_fine_size(opt, regime)       # video3d
+    except (NotImplementedError, ValueError) as e:
         out.append(str(e))
     checks = (
         (opt.dataDevice, "dataDevice (ROADMAP A.10)"),
@@ -146,6 +151,9 @@ def _display_dump(opt: Opt, regime: str, batch, fake, out_dir: str,
     """PNG grids of fake / real / composited (train.lua:427-445 analogue)."""
     tag = f"{opt.name}_e{epoch}_s{step}"
     real = batch["real"]
+    if real.dim() == 5:  # a video3d clip: show the first frame
+        batch = {k: v[:, 0] for k, v in batch.items()}
+        real, fake = batch["real"], fake[:, 0]
     if regime == "center":
         ctx = masks.center_mask_fill(real, opt.overlapPred)
         comp = masks.paste_center(ctx, fake, opt.overlapPred)
@@ -168,8 +176,9 @@ def train(opt: Opt, regime: str):
     if bad:
         raise SystemExit("; ".join(bad))
     with_init = bool(opt.withInit and opt.initName)
-    if with_init and regime != "video":
-        raise SystemExit(f"withInit requires regime=video, not {regime!r}")
+    if with_init and regime not in ("video", "video3d"):
+        raise SystemExit(f"withInit requires regime=video or video3d, not "
+                         f"{regime!r}")
     check_eval_options(opt, regime)
     device = resolve_device(opt)
     seed = opt.manualSeed or int(np.random.randint(1, 10000))

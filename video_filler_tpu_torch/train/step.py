@@ -1,5 +1,6 @@
-"""The GAN train step of the 2-D regimes (counterpart of
-video_filler_tpu/train/step.py): center, video, logo and wholeim.
+"""The GAN train step (counterpart of video_filler_tpu/train/step.py): the
+2-D regimes center, video, logo and wholeim, and the temporal 3-D family
+video3d, whose clips are (B,T,H,W,C) with a (B,1,H,W,1) mask.
 
 One step: a G forward, D on the real input and on the detached fake (BN
 running statistics updated in that order), D on the fake again for G's
@@ -14,16 +15,17 @@ weights and BN buffers and the optimizers' moments.
   computed by the fused CUDA kernel (ops/cuda/fused_loss.py) on every step
   of every regime; ``usePallasLoss`` has no effect here.  The weights keep
   their broadcast shape: the (1,H,W,1) overlap ring (center), wtl2 times the
-  (B,H,W,1) mask blend (video) or the full-size one (wholeim), a 0-dim wtl2
-  (logo).  ``errG_l2`` is logged unweighted.
-* Composite fake (video, wholeim): when ``weight_nomask == 0``, or
+  (B,H,W,1) mask blend (video), the (B,1,H,W,1) one over T (video3d) or the
+  full-size one (wholeim), a 0-dim wtl2 (logo).  ``errG_l2`` is logged
+  unweighted.
+* Composite fake (video, video3d, wholeim): when ``weight_nomask == 0``, or
   ``compositeLtOne`` and it is < 1, D and the loss see the target with only
   the masked pixels taken from G (train_vid_weighted.lua:429-434,
   train_mycrit.lua:431-437).  ``torch.where`` of a bf16 fake into the f32
   target promotes to f32, as ``jnp.where`` does.
 * ``wtgdl`` adds the gradient-difference loss; ``gdlTorchQuirk`` logs its
   value but applies the MSE gradient (train_vid_weighted.lua:524-525).
-* ``withInit`` (video only): a pre-trained generator, in eval mode and
+* ``withInit`` (video, video3d): a pre-trained generator, in eval mode and
   without gradients, fills its prediction into the masked context before G
   runs (train_mycrit.lua:402-405).
 * D's parameters get only ``loss_d`` (the fake is detached); G's get only
@@ -39,17 +41,18 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch import nn
 
 from video_filler_tpu_torch.config import Opt, resolve_device
 from video_filler_tpu_torch.models import (
-    Discriminator,
-    Generator,
     build_for_regime,
+    check_fine_size,
     specs_for_regime,
 )
 from video_filler_tpu_torch.ops import image as image_ops
 from video_filler_tpu_torch.ops import losses, masks
 from video_filler_tpu_torch.ops.cuda.fused_loss import fused_weighted_mse
+from video_filler_tpu_torch.ops.layers3d import unfold_time
 
 METRIC_KEYS = ("errD", "errD_real", "errD_fake", "errG", "errG_l2",
                "errG_gdl", "errG_total")
@@ -57,8 +60,8 @@ METRIC_KEYS = ("errD", "errD_real", "errD_fake", "errG", "errG_l2",
 
 @dataclasses.dataclass
 class TrainState:
-    gen: Generator
-    disc: Discriminator
+    gen: nn.Module           # models.Generator or Generator3D
+    disc: nn.Module
     opt_g: torch.optim.Adam
     opt_d: torch.optim.Adam
     step: int = 0
@@ -77,7 +80,7 @@ def unsupported_step_options(opt: Opt) -> list[str]:
     return out
 
 
-def _optimizers(opt: Opt, gen: Generator, disc: Discriminator):
+def _optimizers(opt: Opt, gen: nn.Module, disc: nn.Module):
     """Two Adams; G's LR is 10x D's when 0<wtl2<1 (train.lua:218-226)."""
     g_lr = opt.lr * 10.0 if 0.0 < opt.wtl2 < 1.0 else opt.lr
     adam = lambda params, lr: torch.optim.Adam(  # noqa: E731
@@ -105,24 +108,27 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
       logo   : {'real': gt, 'masked': masked input}
       wholeim: {'real': (B,fs,fs,nc*4) target patches, 'mask': same-shape
                 {0,1}, 'masked': (B,fs,fs,nc*arrh*arrw) input patch array}
-    ``init_net`` (with_init only): the initializer Generator.  metrics: 0-dim
+      video3d: {'real': (B,T,fs,fs,nc) contiguous, 'mask': (B,1,fs,fs,1)}
+    ``init_net`` (with_init only): the initializer generator.  metrics: 0-dim
     f32 tensors on the device, keyed ``METRIC_KEYS``; reading them is the
     caller's choice of sync point."""
     specs_for_regime(opt, regime)  # raises on what is not ported yet
+    check_fine_size(opt, regime)
     bad = unsupported_step_options(opt)
     if bad:
         raise NotImplementedError("; ".join(bad))
-    if with_init and regime != "video":
+    if with_init and regime not in ("video", "video3d"):
         # The cascade composites netI's prediction inside the mask
         # (train_mycrit.lua:402-405); only the video trainers define it.
         raise ValueError(
-            f"withInit requires the video regime, not {regime!r}")
+            f"withInit requires a video regime (video, video3d), not "
+            f"{regime!r}")
     device = resolve_device(opt)
     wtl2 = float(opt.wtl2)
     adv_coef = (1.0 - wtl2) if 0.0 < wtl2 < 1.0 else 1.0
     lam = float(opt.weight_nomask)
     wtl2_t = torch.tensor(wtl2, dtype=torch.float32, device=device)
-    composite = regime in ("video", "wholeim") and (
+    composite = regime in ("video", "video3d", "wholeim") and (
         lam == 0.0 or (opt.compositeLtOne and lam < 1.0))
     if regime == "center" and opt.overlapPred > 0:
         half = opt.fineSize // 2
@@ -141,13 +147,13 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         real = batch["real"]
         if regime == "logo":
             return batch["masked"], real, real, wtl2_t, None
-        mask = batch["mask"]                                # video, wholeim
-        ctx = (masks.apply_logo_mask(real, mask, opt.maskValue)
-               if regime == "video" else batch["masked"])
+        mask = batch["mask"]                       # video, video3d, wholeim
+        ctx = (batch["masked"] if regime == "wholeim"
+               else masks.apply_logo_mask(real, mask, opt.maskValue))
         w = wtl2_t * losses.mask_l2_weights(mask.float(), lam)
         return ctx, real, real, w, mask
 
-    def step(state: TrainState, batch, init_net: Generator | None = None
+    def step(state: TrainState, batch, init_net: nn.Module | None = None
              ) -> dict[str, torch.Tensor]:
         ctx, d_real, target, l2_w, mask = prepare(batch)
         if with_init:
@@ -211,6 +217,7 @@ def make_preprocess(opt: Opt, regime: str):
     ``*_draws`` dict, e.g. the JAX side's in a test), else they are drawn
     from the CPU generator ``gen``."""
     specs_for_regime(opt, regime)  # raises on what is not ported yet
+    check_fine_size(opt, regime)
     fs = opt.fineSize
 
     def crop(x, draws):
@@ -265,8 +272,18 @@ def make_preprocess(opt: Opt, regime: str):
                 "real": image_ops.normalize_uint8(batch["raw_real"]),
                 "mask": batch["mask"].float()}
 
+    def video3d(batch, gen=None, draws=None):
+        """The video preprocess, then the clip unfolded to (B,T,H,W,C) and
+        made contiguous (the JAX arrays have no strides; here the kernel's
+        row path and cuDNN's channels_last_3d read it in place); the
+        (B,H,W,1) mask gains a T axis of 1 that broadcasts over the
+        frames."""
+        out = video(batch, gen, draws)
+        return {"real": unfold_time(out["real"], opt.predLen).contiguous(),
+                "mask": out["mask"][:, None]}
+
     return {"center": center, "video": video, "logo": logo,
-            "wholeim": wholeim}[regime]
+            "wholeim": wholeim, "video3d": video3d}[regime]
 
 
 def center_draws(opt: Opt, gen: torch.Generator,
