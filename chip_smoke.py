@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  weights in f32 and with bf16 pred, a ragged (3,7,9,5) with
                  strided operands, and the 128x128 regimes -- video
                  (64,128,128,12) bf16 pred with (64,128,128,1) mask weights,
-                 the video composite (f32 pred, the same weights), wholeim
+                 one gradAccum 4 microbatch of it, (16,128,128,12) with
+                 (16,128,128,1) weights (the center microbatch of batch 512
+                 at gradAccum 8 is the center shape itself), the video
+                 composite (f32 pred, the same weights), wholeim
                  with full-size weights, logo with a 0-dim weight, and the
                  video3d clips (64,4,128,128,3) bf16 pred with
                  (64,1,128,128,1) mask weights (stride 0 over T) and their
@@ -28,9 +31,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  (the bytes of ``kernel_bytes`` at 3.35 TB/s).  Checks that
                  no single PyTorch call computes the function.
   4. parity   -- one tiny-width f32 train step on the card against the same
-                 step on the CPU, for center, video, wholeim and video3d (the
-                 CPU port is held against the JAX package by
-                 tests/test_torch_*.py).
+                 step on the CPU, for center, video, wholeim and video3d,
+                 then for each step option: center conditionAdv, center
+                 noiseGen on one fixed z, video gradAccum 2, video remat,
+                 center adamMomentsBf16 and center useBias (the CPU port is
+                 held against the JAX package by tests/test_torch_*.py);
+                 and bf16 at batch 8 on center, card against CPU, with the
+                 CPU suite's bf16 parity rules (tests/test_torch_models.py
+                 check_bf16_parity).
   5. main     -- ``video_filler_tpu_torch.train.loop.main`` at full width
                  (nef=ngf=ndf=64, nBottleneck=4000, fineSize=128, batch 64,
                  bf16) on synthetic data: center for 5 steps; the canonical
@@ -41,13 +49,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  wholeim for 2 each; video3d (the temporal 3-D family,
                  video3dLevels 5, predLen 4, ~279 M G parameters) for 5
                  steps with a checkpoint, its autoResume for 2 more and a
-                 withInit run at weight_nomask 0 for 2.  Every logged
-                 metric finite; each loss kernel launched once per step in
-                 each direction on every run, all on the row path (no
-                 generic launch).
-  6. timing   -- 20 steps on one device-resident batch, center, video and
-                 video3d: ms/step, clips/s, peak memory, device idle
-                 share.
+                 withInit run at weight_nomask 0 for 2.  Then the step
+                 options, 2 steps each: center conditionAdv; center
+                 noiseGen (nz 100, normal), its checkpoint kept for phase
+                 7; center gradAccum 8 at batch 512 (microbatches of 64);
+                 video adamMomentsBf16 with a checkpoint and 2 more steps on
+                 its autoResume (the bf16 moments read back exactly); video
+                 remat (its peak memory printed beside the plain video
+                 run's); center useBias (G's conv biases trained).  Every
+                 logged metric finite; each loss kernel launched once per
+                 microbatch in each direction (steps x gradAccum) on every
+                 run, all on the row path (no generic launch).
+  6. timing   -- 20 steps on one device-resident batch, center, video,
+                 video3d and each step option of phase 5: ms/step,
+                 clips/s, peak memory, device idle share.
      (--profile adds a torch.profiler table of device time by kernel.)
   7. inference -- in phase 5's directory, on its checkpoints and corpus:
                  tiny f32 inference on the card against the CPU (the
@@ -65,7 +80,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  360x480, the input kept outside the mask; the video3d
                  checkpoint: ``load_generator`` (3-D conv weights bf16),
                  ``bench_inference`` at batch 64 and its server under 64
-                 concurrent single-row requests.
+                 concurrent single-row requests; the center noiseGen
+                 checkpoint: ``load_generator``, ``evaluate`` and
+                 ``bench_inference`` at batch 64, and its server under 16
+                 concurrent single-row requests, 8 with their own z (each
+                 within one uint8 level of its solo result; a row without
+                 noise equal to the zero-noise result).
 Then one JSON line of the kernels' numbers (at the video geometry, and by
 geometry under "geometries"), and as the last line
 {"ok": true, "device": {...}}.
@@ -101,6 +121,7 @@ VIDEO_ARGS = ["regime=video", *WIDTH, "predLen=4", "weight_nomask=0.05",
 VIDEO3D_ARGS = ["regime=video3d", *WIDTH, "video3dLevels=5", "predLen=4",
                 "weight_nomask=0.05", "loadSize=240"]
 MAIN_STEPS = 5
+OPTION_STEPS = 2              # full-width steps of each step option's run
 TIMED_STEPS = 20
 FLUSH_BYTES = 256 * 2 ** 20   # written, then read, between cold-L2 calls
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA's data sheet
@@ -252,6 +273,9 @@ def kernel_operands(torch, losses, masks):
         ("ragged f32", pred_r, target_r, w_r),
         ("ragged bf16", pred_r.bfloat16(), target_r, w_r),
         ("video bf16", fake, clip, w_vid),
+        # one microbatch of a gradAccum 4 video step at batch 64 (the
+        # center microbatch of batch 512 at gradAccum 8 is "center bf16")
+        ("video microbatch bf16", fake[:16], clip[:16], w_vid[:16]),
         ("video composite f32", composite, clip, w_vid),
         ("wholeim bf16", fake, clip, w_wi),
         ("logo bf16", fake[..., :3].contiguous(), gt_logo, wtl2),
@@ -398,48 +422,123 @@ def parity_batches(np):
 
 
 def parity_check(torch, np, Opt, step_mod):
-    """Phase 4: tiny f32 steps, card against CPU, from the same init."""
+    """Phase 4: tiny f32 steps, card against CPU, from the same init: each
+    regime, then each step option (noiseGen on one fixed z)."""
     base = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
                 computeDtype="float32")
-    for regime, extra, batch in parity_batches(np):
+    batches = parity_batches(np)
+    by_regime = {regime: (extra, batch) for regime, extra, batch in batches}
+    z = np.random.RandomState(4).normal(size=(4, 1, 1, 5)).astype(np.float32)
+    for regime, kw in (("center", dict(conditionAdv=True)),
+                       ("center", dict(noiseGen=True, nz=5)),
+                       ("video", dict(gradAccum=2)),
+                       ("video", dict(remat=1)),
+                       ("center", dict(adamMomentsBf16=True)),
+                       ("center", dict(useBias=True))):
+        extra, batch = by_regime[regime]
+        label = " ".join(f"{k}={v}" for k, v in kw.items())
+        batches.append((f"{regime} {label}", {**extra, **kw}, batch))
+    for name, extra, batch in batches:
+        regime = name.split()[0]
         out = {}
         for device in ("cpu", "cuda"):
             opt = Opt(device=device, **base, **extra)
             state = step_mod.init_train_state(
                 opt, regime, torch.Generator().manual_seed(5))
             step = step_mod.make_train_step(opt, regime)
+            noise = torch.from_numpy(z).to(device) if opt.noiseGen else None
             metrics = step(state, {k: torch.from_numpy(v).to(device)
-                                   for k, v in batch.items()})
+                                   for k, v in batch.items()}, noise=noise)
             out[device] = ({k: v.item() for k, v in metrics.items()},
                            [p.detach().cpu() for p in state.gen.parameters()])
         for k, v in out["cpu"][0].items():
             got = out["cuda"][0][k]
             if not math.isclose(got, v, rel_tol=1e-3, abs_tol=1e-6):
-                fail(f"parity {regime}: {k} on the card {got} vs CPU {v}")
+                fail(f"parity {name}: {k} on the card {got} vs CPU {v}")
         # First Adam step ~ lr*sign(g): a tiny gradient can flip sign, worth
         # 2*lr_G = 4e-3 (the JAX suite's bound for the same comparison).
         worst = max(float((a - b).abs().max())
                     for a, b in zip(out["cuda"][1], out["cpu"][1]))
         if worst > 4.1e-3:
-            fail(f"parity {regime}: G params after one step differ by "
+            fail(f"parity {name}: G params after one step differ by "
                  f"{worst}")
-        print(f"card vs CPU, tiny f32 {regime} step: metrics within rtol "
+        print(f"card vs CPU, tiny f32 {name} step: metrics within rtol "
               f"1e-3 ({json.dumps(out['cuda'][0])}); G params max|diff| "
               f"{worst:.2e}")
+    bf16_parity(torch, np, Opt, step_mod)
+
+
+BF16_METRICS = ("errD", "errD_real", "errD_fake", "errG", "errG_l2",
+                "errG_total")
+
+
+def bf16_parity(torch, np, Opt, step_mod):
+    """Phase 4, bf16 (the default computeDtype): the center case of the CPU
+    suite (tests/test_torch_models.py ``check_bf16_parity``) with the card in
+    the port's place and the CPU in JAX's.  At nef=ngf=ndf=8, nBottleneck
+    16, batch 8 of smooth textures: G's train-mode forward and one step, in
+    f32 and bf16 on each device.  The card's bf16-vs-f32 error (mean and
+    max abs) at most 1.5x the CPU's; card against CPU in bf16 at most 2x
+    the larger max error; each metric within 2x the larger relative
+    bf16-vs-f32 change of that metric."""
+    from video_filler_tpu_torch.data.synthetic import _texture
+    rs = np.random.RandomState(1)
+    real = torch.from_numpy(np.stack([_texture(rs, 128, 128)
+                                      for _ in range(8)]).astype(np.float32)
+                            / 127.5 - 1.0)
+    kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=8, wtl2=0.999,
+              overlapPred=4)
+    out = {}
+    for device in ("cpu", "cuda"):
+        for dt in ("float32", "bfloat16"):
+            opt = Opt(device=device, computeDtype=dt, **kw)
+            state = step_mod.init_train_state(
+                opt, "center", torch.Generator().manual_seed(5))
+            x = real.to(device)
+            with torch.no_grad():
+                g = step_mod.init_train_state(
+                    opt, "center", torch.Generator().manual_seed(5)).gen
+                y = g.train()(x).float().cpu()
+            m = step_mod.make_train_step(opt, "center")(state, {"real": x})
+            out[(device, dt)] = (y, {k: m[k].item() for k in BF16_METRICS})
+    err = {d: (out[(d, "bfloat16")][0] - out[(d, "float32")][0]).abs()
+           for d in ("cpu", "cuda")}
+    cross = (out[("cuda", "bfloat16")][0] - out[("cpu", "bfloat16")][0]).abs()
+    e = {d: (float(err[d].mean()), float(err[d].max())) for d in err}
+    print(f"bf16 vs f32, tiny center G at batch 8: CPU mean {e['cpu'][0]:.3e}"
+          f" max {e['cpu'][1]:.3e}; card mean {e['cuda'][0]:.3e} max "
+          f"{e['cuda'][1]:.3e}; card vs CPU in bf16 mean "
+          f"{float(cross.mean()):.3e} max {float(cross.max()):.3e}")
+    if e["cuda"][0] > 1.5 * e["cpu"][0] or e["cuda"][1] > 1.5 * e["cpu"][1]:
+        fail("bf16 parity: the card's bf16 error exceeds 1.5x the CPU's")
+    if float(cross.max()) > 2 * max(e["cpu"][1], e["cuda"][1]):
+        fail("bf16 parity: card and CPU differ in bf16 by more than 2x the "
+             "larger bf16-vs-f32 max error")
+    for k in BF16_METRICS:
+        spread = max(abs(out[(d, "bfloat16")][1][k]
+                         / out[(d, "float32")][1][k] - 1)
+                     for d in ("cpu", "cuda"))
+        got, ref = out[("cuda", "bfloat16")][1][k], out[("cpu", "bfloat16")][1][k]
+        print(f"bf16 one-step {k}: card {got:.6f} CPU {ref:.6f}, relative "
+              f"{abs(got / ref - 1):.2e} (limit {2 * spread:.2e})")
+        if abs(got / ref - 1) > 2 * spread:
+            fail(f"bf16 parity: {k} differs by more than 2x its bf16 spread")
 
 
 def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
-             expect=None):
+             expect=None, grad_accum=1):
     """Drive ``loop.main`` once from ``tmp`` with the launch counts set to
     0 just before; check the steps it logged (every metric finite) and that
-    each loss kernel launched at least once per step.  ``expect``: the
-    epoch of each of the last ``steps`` logged steps.  Returns (state,
-    launch counts)."""
+    each loss kernel launched exactly ``grad_accum`` times per step in each
+    direction (once per microbatch), all on the row path.  ``expect``: the
+    epoch of each of the last ``steps`` logged steps.  Prints the run's
+    peak device memory.  Returns (state, launch counts)."""
     for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
         for k in counts:
             counts[k] = 0
     cwd = os.getcwd()
     os.chdir(tmp)
+    torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
         state = loop.main([*args, f"name={name}"])
@@ -447,6 +546,7 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
         seconds = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
     with open(os.path.join(tmp, "logs", f"{name}.jsonl")) as f:
         recs = [json.loads(line) for line in f]
@@ -460,16 +560,19 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
         bad = [k for k in step_mod.METRIC_KEYS if not math.isfinite(r[k])]
         if bad:
             fail(f"{name}: non-finite metrics {bad} at step {r['step']}")
-    if launches["fwd"] != steps or launches["bwd"] != steps:
+    per_dir = steps * grad_accum
+    if launches["fwd"] != per_dir or launches["bwd"] != per_dir:
         fail(f"{name}: loss kernels launched {launches} times in {steps} "
-             f"steps, not once per step in each direction")
-    if launches["generic"] or launches["row"] != 2 * steps:
+             f"steps of {grad_accum} microbatches, not once per microbatch "
+             f"in each direction")
+    if launches["generic"] or launches["row"] != 2 * per_dir:
         fail(f"{name}: loss kernels launched {launches} times in {steps} "
              f"steps: every launch must take the row path")
     n_params = sum(p.numel() for p in state.gen.parameters())
     print(f"{name}: {steps} full-width steps in {seconds:.1f} s (first-step "
           f"cudnn autotune included); G params {n_params / 1e6:.1f} M; "
-          f"kernel launches {launches}; errG_l2 by step "
+          f"peak memory {peak_gb:.2f} GB; kernel launches {launches}; "
+          f"errG_l2 by step "
           + " ".join(f"{r['errG_l2']:.4f}" for r in logged))
     return state, launches
 
@@ -477,10 +580,11 @@ def run_main(torch, fl, loop, step_mod, args, name, steps, tmp,
 def time_step(torch, step_fn, state, batch, label, smi, knum=None):
     """Phase 6 for one configuration: ms/step and clips/s over TIMED_STEPS
     steps on one device-resident batch, peak memory, device idle share."""
+    n = batch["real"].shape[0]
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: step_fn(state, batch), TIMED_STEPS)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"{label}: {step_ms:.2f} ms/step, {64 * 1e3 / step_ms:.1f} clips/s, "
+    print(f"{label}: {step_ms:.2f} ms/step, {n * 1e3 / step_ms:.1f} clips/s, "
           f"peak memory {peak_gb:.2f} GB on {smi}")
     if knum is not None:
         loss_ms = knum["fwd"] + knum["bwd"]
@@ -578,10 +682,96 @@ def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
             launches3[k] += launches[k]
     print(f"video3d kernel launches over its 3 runs ({MAIN_STEPS + 4} "
           f"steps): {launches3}")
+    options, launches_opt = option_runs(torch, fl, loop, step_mod,
+                                        center_args, video, tmp)
+    add(launches_opt)
     print(f"kernel launches over every main-path run: {total}")
     return {"center_state": state_c, "center_args": center_args,
             "video": video, "video3d": video3d, "launches": total,
-            "launches_video3d": launches3}
+            "launches_video3d": launches3, "options": options,
+            "launches_options": launches_opt}
+
+
+def option_runs(torch, fl, loop, step_mod, center_args, video, tmp):
+    """Phase 5, the step options: each through ``loop.main`` at full width
+    for OPTION_STEPS steps.  center conditionAdv, center noiseGen (nz 100,
+    normal; its checkpoint serves phase 7), center gradAccum 8 at batch 512
+    (microbatches of 64: one epoch of 320 images is one step), video
+    adamMomentsBf16 with a checkpoint and its autoResume (the bf16 moments
+    read back exactly), video remat (peak memory beside the plain video
+    run's), center useBias.  Returns ({label: (regime, args, gradAccum)},
+    the launch totals)."""
+    import numpy as np
+
+    from video_filler_tpu_torch.checkpoint import ckpt as ckpt_mod
+    from video_filler_tpu_torch.config import from_args, split_regime
+    from video_filler_tpu_torch.ops.layers import ConvBase
+    from video_filler_tpu_torch.train.optim import AdamBf16Moments
+    n = OPTION_STEPS
+    center = [*center_args, f"ntrain={64 * n}", "checkpointEvery=5"]
+    vid = [*video[:-1], f"ntrain={64 * n}", "niter=1", "checkpointEvery=5"]
+    runs = {
+        "center_conditionAdv": ("center", [*center, "conditionAdv=1"], 1),
+        "center_noiseGen": ("center", [*center, "noiseGen=1", "nz=100",
+                                       "noisetype=normal",
+                                       "checkpointEvery=1"], 1),
+        "center_gradAccum": ("center", [*center_args, "batchSize=512",
+                                        "gradAccum=8", f"niter={n}",
+                                        "checkpointEvery=5"], 8),
+        "video_adamMomentsBf16": ("video", [*vid, "adamMomentsBf16=1",
+                                            "checkpointEvery=1"], 1),
+        "video_remat": ("video", [*vid, "remat=1"], 1),
+        "center_useBias": ("center", [*center, "useBias=1"], 1),
+    }
+    total = {"fwd": 0, "bwd": 0, "row": 0, "generic": 0}
+    for label, (regime, args, accum) in runs.items():
+        epochs = list(range(1, n + 1)) if accum > 1 else [1] * n
+        state, launches = run_main(torch, fl, loop, step_mod, args, label, n,
+                                   tmp, epochs, grad_accum=accum)
+        if label == "center_useBias":
+            biases = [m.bias for m in state.gen.modules()
+                      if isinstance(m, ConvBase)]
+            moved = sum(bool(b.abs().max() > 0) for b in biases)
+            if len(biases) != 11 or not bool(
+                    state.gen.dec.up4.bias.abs().max() > 0):
+                fail(f"useBias: G has {len(biases)} conv biases and the "
+                     "output conv's did not move from zero")
+            print(f"{label}: {moved} of G's {len(biases)} conv biases moved "
+                  "from zero (Adam trains them)")
+        del state
+        gc.collect()
+        for k in total:
+            total[k] += launches[k]
+    # adamMomentsBf16: the autoResume of its checkpoint for n more steps
+    label = "video_adamMomentsBf16"
+    state, launches = run_main(
+        torch, fl, loop, step_mod,
+        [*runs[label][1], "niter=2", "checkpointEvery=5", "autoResume=1"],
+        label, n, tmp, [2] * n)
+    for k in total:
+        total[k] += launches[k]
+    path = os.path.join(tmp, "checkpoints", f"{label}_1_state.npz")
+    back = step_mod.init_train_state(
+        from_args(split_regime(runs[label][1])[1]), "video",
+        torch.Generator().manual_seed(0))
+    ckpt_mod.restore_checkpoint(path, back)
+    st = back.opt_g.state[back.gen.enc.conv0.weight]
+    flat = ckpt_mod.flatten_state(back)
+    with np.load(path) as f:
+        stored = {k: f[k] for k in f.files if k.startswith(".opt_")}
+    if not (isinstance(state.opt_g, AdamBf16Moments)
+            and isinstance(back.opt_g, AdamBf16Moments)
+            and st["exp_avg"].dtype == torch.bfloat16
+            and int(st["step"]) == n and state.step == 2 * n
+            and ".opt_g['mu']['enc']['conv0']['w']" in stored
+            and all(np.array_equal(flat[k], v) for k, v in stored.items())):
+        fail(f"{label}: the bf16 moments did not come back from {path}")
+    print(f"{label}: the autoResume ran on bf16 moments; the checkpoint's "
+          f"moments (stored f32) read back into bf16 exactly (count {n})")
+    del state, back
+    gc.collect()
+    print(f"kernel launches over the step-option runs: {total}")
+    return runs, total
 
 
 def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
@@ -630,6 +820,34 @@ def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
               "width, bf16", smi_line, knum["video3d bf16"])
     if profile:
         profile_table(torch, step_fn, state, batch)
+    del state, batch, step_fn
+    gc.collect()
+    # the step options of phase 5, each on its own state (noiseGen on one
+    # fixed z), the batch made as above
+    for label, (regime, args, _) in run["options"].items():
+        opt = from_args(split_regime(args)[1])
+        state = step_mod.init_train_state(opt, regime,
+                                          torch.Generator().manual_seed(0))
+        n = opt.batchSize
+        if regime == "center":
+            raw = torch.randint(0, 256, (n, 128, 128, 3), generator=g,
+                                dtype=torch.uint8, device="cuda")
+            host = {"raw": raw}
+        else:
+            host = {"raw": torch.randint(0, 256, (n, 128, 128, 12),
+                                         generator=g, dtype=torch.uint8,
+                                         device="cuda"), "mask": mask}
+        batch = step_mod.make_preprocess(opt, regime)(
+            host, torch.Generator().manual_seed(0))
+        step = step_mod.make_train_step(opt, regime)
+        z = step_mod.draw_noise(opt, torch.Generator().manual_seed(0), n,
+                                "cuda") if opt.noiseGen else None
+        time_step(torch, lambda s_, b_: step(s_, b_, noise=z), state, batch,
+                  f"{label} step, batch {n}"
+                  f"{f', gradAccum {opt.gradAccum}' if opt.gradAccum > 1 else ''}"
+                  ", full width, bf16", smi_line)
+        del state, batch, step, host
+        gc.collect()
 
 
 def profile_table(torch, step_fn, state, batch):
@@ -781,7 +999,7 @@ def inference_parity(torch, np, Opt, step_mod, tmp):
 
 
 def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
-              video3d, tmp, smi):
+              video3d, noise_args, tmp, smi):
     """Phase 7: the loader, eval.metrics, the tiled and streaming evals and
     the server, at full width on the phase 5 checkpoints and corpus."""
     from video_filler_tpu_torch.eval import metrics
@@ -904,6 +1122,9 @@ def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
     video3d_inference(torch, np, metrics, load_generator, InpaintServer,
                       from_args(split_regime(video3d)[1]),
                       j("checkpoints", "video3d_1_state.npz"), smi)
+    noise_inference(torch, np, metrics, load_generator, InpaintServer,
+                    from_args(split_regime(noise_args)[1]),
+                    j("checkpoints", "center_noiseGen_1_state.npz"), smi)
     print(f"loss-kernel launches during inference: {dict(fl.LAUNCHES)} "
           f"(inference runs no hand-written kernel)")
 
@@ -984,6 +1205,71 @@ def video3d_inference(torch, np, metrics, load_generator, InpaintServer,
         srv.close()
 
 
+def noise_inference(torch, np, metrics, load_generator, InpaintServer, opt,
+                    net, smi):
+    """Phase 7 for the center noiseGen checkpoint of phase 5: the loader
+    (the noise projection's weights bf16 too), ``evaluate`` (one z per
+    batch) and ``bench_inference`` (one fixed z) at batch 64, and a
+    noiseGen server: 16 concurrent single-row requests, half of them with
+    their own z, each within one uint8 level of its solo result; a row
+    posted without noise equals the same row posted with zeros."""
+    opt = opt.replace(net=net)
+    gen = loaded_generator(torch, load_generator, opt, "center", net)
+    q = metrics.evaluate(opt, "center", n_batches=INFER_BATCHES, loaded=gen)
+    bad = [k for k, v in q.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"evaluate, center noiseGen: non-finite {bad}")
+    s = metrics.bench_inference(opt, "center", iters=BENCH_ITERS, loaded=gen)
+    print(f"evaluate, center noiseGen (nz {opt.nz}), {INFER_BATCHES} batches "
+          f"of 64: psnr {q['psnr_db']:.3f} dB, hole_l2 {q['hole_l2']:.5f}; "
+          f"bench_inference at batch 64: {s['clips_per_sec']:.1f} clips/s, "
+          f"batch latency {s['batch_latency_ms']:.2f} ms on {smi}")
+    del gen
+    from concurrent.futures import ThreadPoolExecutor
+    srv = InpaintServer(opt, "center", net, max_delay_ms=5.0)
+    try:
+        rs = np.random.RandomState(10)
+        ctxs = [rs.randint(0, 256, (128, 128, 3), np.uint8)
+                for _ in range(16)]
+        zs = [rs.normal(size=opt.nz).astype(np.float32) if i % 2 else None
+              for i in range(16)]
+
+        def one(i):
+            arrays = {"ctx": ctxs[i]}
+            if zs[i] is not None:
+                arrays["noise"] = zs[i]
+            return post(srv.port, **arrays)
+        with ThreadPoolExecutor(16) as pool:
+            outs = list(pool.map(one, range(16)))
+        n_diff = 0
+        for i, (code, out) in enumerate(outs):
+            code_solo, solo = one(i)
+            if code != 200 or code_solo != 200:
+                fail(f"noiseGen server: HTTP {code} / {code_solo}")
+            n_diff += u8_levels("noiseGen server row against its solo "
+                                "result", out, solo)
+            if zs[i] is None:
+                code_z, zero = post(srv.port, ctx=ctxs[i],
+                                    noise=np.zeros(opt.nz, np.float32))
+                if code_z != 200 or not np.array_equal(solo, zero):
+                    fail("noiseGen server: a row without noise is not the "
+                         "zero-noise result")
+            else:
+                code_o, other = post(srv.port, ctx=ctxs[i],
+                                     noise=-3 * zs[i])
+                if code_o != 200 or np.array_equal(solo, other):
+                    fail("noiseGen server: the posted noise does not reach "
+                         "the output")
+        st = srv.stats()
+        print(f"noiseGen center server, batch 64, 16 concurrent single-row "
+              f"requests (8 with their own z): each row within one uint8 "
+              f"level of its solo result ({n_diff} values differ); rows "
+              f"without noise equal the zero-noise result; avg_fill "
+              f"{st['avg_fill']:.3f} over {st['batches']} batches on {smi}")
+    finally:
+        srv.close()
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -1054,7 +1340,8 @@ def main() -> None:
 
         phase("7 inference")
         inference(torch, np, fl, Opt, from_args, split_regime, step_mod,
-                  run["video"], run["video3d"], tmp, smi_line)
+                  run["video"], run["video3d"],
+                  run["options"]["center_noiseGen"][1], tmp, smi_line)
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"

@@ -181,7 +181,10 @@ def test_shape_mismatch_and_bf16_moments_fail_loudly(tmp_path):
         jax.random.PRNGKey(0), JaxOpt(**{**SMALL, "adamMomentsBf16": True}),
         "video")
     path = jckpt.save_checkpoint(str(tmp_path), "bf16m", 1, jstate)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    # a bf16-moment file does not resume an f32-Adam run: both are named
+    with pytest.raises(ValueError, match=r"holds bf16 Adam moments "
+                       r"\(adamMomentsBf16=1\) for opt_g, but this run uses "
+                       r"f32 Adam moments \(adamMomentsBf16=0\)"):
         ckpt.restore_checkpoint(path, pstate)
 
 

@@ -58,7 +58,6 @@ def test_cli_trains_two_steps(tmp_path):
 @pytest.mark.parametrize("arg,item", [
     ("seqParallel=2", "A.14"),
     ("dataDevice=1", "A.10"), ("modelParallel=2", "A.14"),
-    ("noiseGen=1", "A.8"), ("gradAccum=2", "A.8"), ("remat=1", "A.8"),
     ("displayServer=1", "A.9"), ("profileSteps=3", "A.9"),
 ])
 def test_unsupported_option_exits_naming_its_roadmap_item(arg, item):
@@ -118,6 +117,10 @@ FORMERLY_REFUSED = {
     "autoResume=1": (["autoResume=1", "name=base", "niter=2"], "resumes"),
     "loadName=x": (["loadName=base", "loadIter=1", "niter=2"], "resumes"),
     "checkpointEvery=1": (["checkpointEvery=1"], "checkpoints"),
+    # the step options of ROADMAP A.8
+    "noiseGen=1": (["noiseGen=1", "nz=5"], "trains"),
+    "gradAccum=2": (["gradAccum=2", "batchSize=4", "ntrain=8"], "trains"),
+    "remat=1": (["remat=1"], "trains"),
 }
 
 

@@ -211,6 +211,17 @@ def test_forward_is_bitwise_repeatable_at_the_video_geometry(cuda):
                                rtol=1e-5, atol=0)
 
 
+def test_kernels_match_plain_version_at_the_video_microbatch(cuda):
+    """One microbatch of a gradAccum 4 video step at batch 64: (16,128,128,
+    12) bf16 pred, (16,128,128,1) mask weights, sliced from the full batch
+    as the step slices it; the row path, 32-bit offsets."""
+    pred, target, w = (x[:16] for x in _video_operands(cuda))
+    assert pred.shape == (16, 128, 128, 12) and w.shape == (16, 128, 128, 1)
+    p = fl.plan(pred, target, w)
+    assert (p.variant, p.index32) == ("row", True)
+    _check_against_plain(cuda, pred, target, w)
+
+
 def test_a_second_stream_gets_its_own_workspace_and_the_same_result(cuda):
     pred, target, w = _video_operands(cuda, b=8)
     ref = fl.launch_forward(pred, target, w)
@@ -282,6 +293,38 @@ def test_tiny_step_on_the_card_matches_the_cpu(cuda, regime, extra):
                                        torch.Generator().manual_seed(5))
         m = tstep.make_train_step(opt, regime)(
             state, {k: v.to(dev) for k, v in batch.items()})
+        metrics[dev] = {k: v.item() for k, v in m.items()}
+    for k, v in metrics["cpu"].items():
+        assert metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-6), k
+
+
+@pytest.mark.parametrize("regime,extra", [
+    ("center", dict(overlapPred=4, conditionAdv=True)),
+    ("center", dict(overlapPred=4, noiseGen=True, nz=5)),
+    ("video", dict(predLen=2, weight_nomask=0.05, gradAccum=2)),
+    ("video", dict(predLen=2, weight_nomask=0.05, remat=1)),
+    ("center", dict(overlapPred=4, adamMomentsBf16=True)),
+    ("center", dict(overlapPred=4, useBias=True)),
+], ids=["conditionAdv", "noiseGen", "gradAccum", "remat", "adamMomentsBf16",
+        "useBias"])
+def test_tiny_option_step_on_the_card_matches_the_cpu(cuda, regime, extra):
+    """Each step option, one tiny f32 step on the card against the CPU from
+    the same init (noiseGen on one fixed z)."""
+    from video_filler_tpu_torch.train import step as tstep
+    kw = dict(nef=8, ngf=8, ndf=8, nBottleneck=16, batchSize=4, wtl2=0.999,
+              computeDtype="float32", **extra)
+    batch = _tiny_batch(regime)
+    z = torch.from_numpy(np.random.RandomState(4).normal(
+        size=(4, 1, 1, 5)).astype(np.float32))
+    metrics = {}
+    for dev in ("cpu", "cuda"):
+        opt = Opt(device=dev, **kw)
+        state = tstep.init_train_state(opt, regime,
+                                       torch.Generator().manual_seed(5))
+        step = tstep.make_train_step(opt, regime)
+        noise = z.to(dev) if opt.noiseGen else None
+        m = step(state, {k: v.to(dev) for k, v in batch.items()},
+                 noise=noise)
         metrics[dev] = {k: v.item() for k, v in m.items()}
     for k, v in metrics["cpu"].items():
         assert metrics["cuda"][k] == pytest.approx(v, rel=1e-3, abs=1e-6), k

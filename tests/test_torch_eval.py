@@ -182,14 +182,37 @@ def test_load_generator_keeps_conv_weights_in_the_compute_dtype(work):
         assert torch.equal(gen(x), f32(x))
 
 
-@pytest.mark.parametrize("net,item", [("g.t7", "A.16"), ("g.npz", "A.8")],
-                         ids=["t7", "noiseGen"])
+@pytest.mark.parametrize("net,item", [("g.t7", "A.16")], ids=["t7"])
 def test_unported_inference_options_exit_naming_their_item(net, item):
-    _, popt = opts("center", noiseGen=net == "g.npz")
+    _, popt = opts("center")
     with pytest.raises(SystemExit, match=item):
         common.load_generator(popt, "center", net, "cpu")
     with pytest.raises(SystemExit, match="video3d"):
         run_test_vid(popt, regime="center")
+
+
+def test_noise_gen_generator_loads_and_takes_the_jax_draw(tmp_path):
+    """A JAX center noiseGen checkpoint through the port's loader: G takes
+    (ctx, z) from ``gen_input``, with the JAX side's z (the eval CLIs'
+    PRNGKey(manualSeed) draw) its output is JAX's, and by default z comes
+    from a torch.Generator seeded with manualSeed."""
+    from video_filler_tpu.eval.common import gen_input as jgen_input
+    from video_filler_tpu.eval.common import load_generator as jload
+    jopt, popt = opts("center", noiseGen=True, nz=5)
+    net = jax_checkpoint(tmp_path, "ng", "center", noiseGen=True, nz=5)
+    fwd, params, bn = jload(jopt, "center", net)
+    gen = common.load_generator(popt, "center", net, "cpu")
+    ctx = _x("center")
+    jx = jgen_input(jopt, jnp.asarray(ctx), jax.random.PRNGKey(222))
+    x = common.gen_input(popt, torch.from_numpy(ctx),
+                         noise=torch.from_numpy(np.array(jx[1])))
+    with torch.inference_mode():
+        got = gen(x).numpy()
+        drawn = common.gen_input(popt, torch.from_numpy(ctx))
+        again = common.gen_input(popt, torch.from_numpy(ctx))
+    np.testing.assert_allclose(got, np.asarray(fwd(params, bn, jx)), **FWD)
+    assert drawn[1].shape == (2, 1, 1, 5)
+    assert torch.equal(drawn[1], again[1])
 
 
 def test_live_generator_scores_the_training_state_in_place(tmp_path):

@@ -440,8 +440,7 @@ def test_serving_and_metrics_import_no_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(regime="video3d", noiseGen=True), "video3d has neither"),
-    (dict(dataParallel=2), "A.14"),
-    (dict(noiseGen=True), "A.8")], ids=["video3d", "dataParallel", "noiseGen"])
+    (dict(dataParallel=2), "A.14")], ids=["video3d", "dataParallel"])
 def test_unported_serving_options_exit_naming_their_item(video_ckpt, kw,
                                                          item):
     popt, path = video_ckpt
@@ -449,3 +448,40 @@ def test_unported_serving_options_exit_naming_their_item(video_ckpt, kw,
     options = {k: v for k, v in kw.items() if k != "regime"}
     with pytest.raises(SystemExit, match=item):
         InpaintServer(popt.replace(**options), regime, path)
+
+
+def test_noise_gen_video_server_takes_noise_per_row(tmp_path):
+    """A noiseGen video G served in patch mode: a row posted without noise
+    equals a post of explicit zeros; posted noise reaches the output; two
+    requests that share one padded batch, one with noise and one without,
+    each get their solo result.  The full-frame mode refuses noiseGen."""
+    _, popt = opts("video", batchSize=4, noiseGen=True, nz=5)
+    state = tstep.init_train_state(popt, "video",
+                                   torch.Generator().manual_seed(0))
+    path = ckpt.save_checkpoint(str(tmp_path), "ng", 1, state)
+    rs = np.random.RandomState(3)
+    ctx = rs.randint(0, 256, (2, 128, 128, 6), np.uint8)
+    z = rs.normal(size=(1, 1, 1, 5)).astype(np.float32) * 3
+    srv = InpaintServer(popt, "video", path, max_delay_ms=1000.0)
+    try:
+        solo_z = _post(srv.port, ctx=ctx[0], noise=z[0, 0, 0])
+        solo_0 = _post(srv.port, ctx=ctx[1])
+        plain = _post(srv.port, ctx=ctx[0])
+        zeros = _post(srv.port, ctx=ctx[1],
+                      noise=np.zeros((1, 1, 5), np.float32))
+        batches = srv.stats()["batches"]
+        with ThreadPoolExecutor(2) as pool:
+            a = pool.submit(srv.infer, ctx[:1], None, z)
+            b = pool.submit(srv.infer, ctx[1:], None)
+            got = a.result(), b.result()
+        shared = srv.stats()["batches"] == batches + 1
+    finally:
+        srv.close()
+    np.testing.assert_array_equal(solo_0, zeros)
+    assert not np.array_equal(solo_z, plain)
+    assert shared
+    assert np.abs(got[0][0].astype(int) - solo_z.astype(int)).max() <= 1
+    assert np.abs(got[1][0].astype(int) - solo_0.astype(int)).max() <= 1
+    with pytest.raises(SystemExit, match="full-frame serving does not "
+                                         "compose with noiseGen"):
+        InpaintServer(popt.replace(frameH=FH, frameW=FW), "video", path)

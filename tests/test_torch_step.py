@@ -229,15 +229,41 @@ def test_g_learning_rate_is_10x_when_wtl2_in_0_1(wtl2, g_over_d):
     assert state.opt_g.param_groups[0]["eps"] == 1e-8
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"gradAccum": 2}, "A.8"), ({"remat": 1}, "A.8"),
-    ({"adamMomentsBf16": True}, "A.8"),
-    ({"conditionAdv": True}, "A.8"), ({"noiseGen": True}, "A.8"),
-])
-def test_unported_step_options_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tstep.make_train_step(Opt(device="cpu", **dict(SMALL, **kw)),
-                              "center")
+@pytest.mark.parametrize("kw", [
+    {"gradAccum": 2}, {"remat": 1}, {"adamMomentsBf16": True},
+    {"conditionAdv": True}, {"noiseGen": True, "nz": 5},
+], ids=["gradAccum", "remat", "adamMomentsBf16", "conditionAdv", "noiseGen"])
+def test_step_options_match_the_jax_center_step(jax_side, kw):
+    """The options the port once refused, each one center step against the
+    JAX step from the same init (its own, for the options that change G, D
+    or the Adam state) on the same batch: gradAccum on the two batches joined (microbatches
+    of 2), noiseGen with the JAX step's z.  Metrics rtol 1e-4."""
+    jopt, state, _, reals = jax_side
+    jopt = jopt.replace(**kw)
+    real = np.concatenate(reals[:2]) if "gradAccum" in kw else reals[0]
+    jopt = jopt.replace(batchSize=real.shape[0])
+    if {"conditionAdv", "noiseGen", "adamMomentsBf16"} & set(kw):
+        state = jax.jit(lambda k: jstep.init_train_state(k, jopt, "center"))(
+            jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(100)
+    _, metrics = jax.jit(jstep.make_train_step(jopt, "center"))(
+        state, {"real": jnp.asarray(real)}, key)
+    opt = Opt(device="cpu", **{**SMALL, **kw, "batchSize": real.shape[0]})
+    pstate = tstep.init_train_state(opt, "center",
+                                    torch.Generator().manual_seed(0))
+    sd_g, sd_d = convert.from_jax(state.params_g, state.state_g,
+                                  state.params_d, state.state_d)
+    pstate.gen.load_state_dict(sd_g, strict=True)
+    pstate.disc.load_state_dict(sd_d, strict=True)
+    noise = None
+    if "noiseGen" in kw:
+        noise = torch.from_numpy(np.array(jstep._draw_noise(
+            jax.random.split(key)[0], jopt, real.shape[0])))
+    pmetrics = tstep.make_train_step(opt, "center")(
+        pstate, {"real": torch.from_numpy(real)}, noise=noise)
+    for k in tstep.METRIC_KEYS:
+        np.testing.assert_allclose(pmetrics[k].item(), float(metrics[k]),
+                                   rtol=1e-4, atol=1e-7, err_msg=k)
 
 
 @pytest.mark.parametrize("kw", [{"wtgdl": 0.1},

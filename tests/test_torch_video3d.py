@@ -341,10 +341,39 @@ def test_fine_size_must_match_the_levels():
 
 @pytest.mark.parametrize("kw,exc,match", [
     (dict(seqParallel=2), NotImplementedError, "ROADMAP A.14"),
-    (dict(useBias=True), NotImplementedError, "ROADMAP A.8"),
     (dict(noiseGen=True), ValueError, "video3d has neither"),
     (dict(conditionAdv=True), ValueError, "video3d has neither"),
-], ids=["seqParallel", "useBias", "noiseGen", "conditionAdv"])
+], ids=["seqParallel", "noiseGen", "conditionAdv"])
 def test_options_the_3d_family_refuses(kw, exc, match):
     with pytest.raises(exc, match=match):
         build_for_regime(Opt(device="cpu", **TINY, **kw), "video3d")
+
+
+def test_use_bias_generator3d_matches_jax():
+    """useBias on the 3-D family: every conv of G and D has a bias (JAX
+    leaf ``b``), added after the conv; with the biases drawn nonzero, G's
+    train-mode forward and running statistics match the JAX G's.  The
+    biases are drawn N(0, 0.02), the weights' scale: at N(0, 0.1) the
+    offset they give the BatchNorms' inputs costs the JAX layers' one-pass
+    variance f32 digits (ROADMAP §C; G's output 5.2e-5 off a float64
+    forward, the port's 6.4e-6)."""
+    jopt = JaxOpt(**{**TINY, "useBias": True})
+    jg, jd = jax_build(jopt, "video3d")
+    kg, kd = jax.random.split(jax.random.PRNGKey(1))
+    (gp, gs), (dp, ds) = jax.jit(jg.init)(kg), jax.jit(jd.init)(kd)
+    rs = np.random.RandomState(2)
+    gp = jax.tree_util.tree_map_with_path(
+        lambda p, x: jnp.asarray(rs.normal(0, 0.02, x.shape), jnp.float32)
+        if p[-1].key == "b" else x, gp)
+    g, d = build_for_regime(Opt(device="cpu", **TINY, useBias=True),
+                            "video3d")
+    sd_g, sd_d = convert.from_jax(gp, gs, dp, ds)
+    assert sd_g["dec.up3.bias"].shape == (3,) and "conv3.bias" in sd_d
+    g.load_state_dict(sd_g, strict=True)
+    d.load_state_dict(sd_d, strict=True)
+    x = _clip((2, 2, 32, 32, 3), 6)
+    ref, ref_state = jg.apply(gp, gs, jnp.asarray(x), train=True)
+    out = g.train()(torch.from_numpy(x))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               **NET_TOL)
+    _check_state(g, ref_state)

@@ -203,11 +203,36 @@ def test_cli_trains_evaluates_resumes_and_cascades(work, tmp_path,
     ("seqParallel=2", "ROADMAP A.14"),
     ("fineSize=64", "fineSize = 4\\*2\\*\\*video3dLevels = 32"),
     ("noiseGen=1", "video3d has neither"),
-    ("useBias=1", "ROADMAP A.8"),
-], ids=["seqParallel", "fineSize", "noiseGen", "useBias"])
+], ids=["seqParallel", "fineSize", "noiseGen"])
 def test_cli_refuses_by_name(work, tmp_path, monkeypatch, arg, match):
     _, data = work
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=match):
         loop.main(_args(data, "niter=1", arg))
     assert not os.path.exists("logs")
+
+
+def test_use_bias_checkpoint_runs_test_vid_as_jax(work, tmp_path):
+    """useBias on video3d through the eval CLI: a JAX checkpoint whose every
+    conv has a nonzero bias (N(0, 0.02), the weights' scale), restored by
+    the port's loader (``b`` to each conv's ``bias``, cast to the compute
+    dtype), gives JAX's prediction."""
+    _, data = work
+    jopt, popt = _opts(**{**data, "useBias": True})
+    st = jax.jit(lambda k: jstep.init_train_state(k, jopt, "video3d"))(
+        jax.random.PRNGKey(1))
+    rs = np.random.RandomState(8)
+    st = st._replace(params_g=jax.tree_util.tree_map_with_path(
+        lambda p, x: jnp.asarray(rs.normal(0, 0.02, x.shape), jnp.float32)
+        if p[-1].key == "b" else x, st.params_g))
+    net = jckpt.save_checkpoint(str(tmp_path), "ub", 1, st)
+    jopt, popt = jopt.replace(net=net), popt.replace(net=net)
+    gen = common.load_generator(popt, "video3d", net, "cpu")
+    assert gen.dec.up3.bias.abs().max() > 0
+    ref = jrun_test_vid(jopt, out_dir=str(tmp_path / "j"), regime="video3d")
+    got = run_test_vid(popt, out_dir=str(tmp_path / "p"), regime="video3d",
+                       draws=jax_draws("video", jax.random.PRNGKey(222), 2,
+                                       fs=32))
+    for k in ("fake", "inpainted"):
+        np.testing.assert_allclose(got[k], np.asarray(ref[k], np.float32),
+                                   **FWD, err_msg=k)

@@ -282,3 +282,18 @@ def test_keep_best_generator_file_reads_in_both_packages(cache, tmp_path):
         np.testing.assert_allclose(got, np.asarray(fwd(params, bn,
                                                        jnp.asarray(x))),
                                    rtol=1e-5, atol=1e-6)
+
+
+def test_bf16_video3d_parity_at_batch_8():
+    """ROADMAP C.1, video3d (tests/test_torch_models.py
+    ``check_bf16_parity`` for the three assertions and how each tolerance
+    comes from the spreads).  Measured on the CPU at nef=ngf=ndf=8,
+    nBottleneck 32, 3 levels, batch 8: G's bf16-vs-f32 error is 7.89e-4
+    mean / 6.08e-3 max abs for JAX and 7.83e-4 / 7.02e-3 for the port; port
+    against JAX in bf16 6.79e-4 / 5.86e-3.  One-step errD moves 2.8e-4
+    (JAX) and 3.4e-4 (port) relative, the two bf16 values differ by
+    5.4e-5; errG 2.3e-4 / 3.5e-4 against 1.2e-4; errG_l2 7.8e-7 / 3.5e-5
+    against 3.5e-5."""
+    from test_torch_models import bf16_spreads, check_bf16_parity
+    check_bf16_parity(bf16_spreads("video3d", dict(TINY, batchSize=8),
+                                   _batch(1, 8)))

@@ -239,3 +239,17 @@ def test_with_init_is_refused_outside_video():
     with pytest.raises(ValueError, match="video"):
         tstep.make_train_step(Opt(device="cpu", **SMALL), "logo",
                               with_init=True)
+
+
+def test_bf16_video_parity_at_batch_8():
+    """ROADMAP C.1, video (tests/test_torch_models.py ``check_bf16_parity``
+    for the three assertions and how each tolerance comes from the
+    spreads).  Measured on the CPU at nef=ngf=ndf=8, nBottleneck 16,
+    predLen 2, batch 8: G's bf16-vs-f32 error is 7.44e-4 mean / 1.31e-2 max
+    abs for JAX and 7.79e-4 / 1.57e-2 for the port; port against JAX in
+    bf16 7.28e-4 / 9.77e-3.  One-step errD moves 1.3e-3 (JAX) and 6.4e-5
+    (port) relative, the two bf16 values differ by 1.37e-3; errG 5.3e-3 /
+    1.9e-3 against 3.4e-3; errG_l2 2.3e-5 / 7.2e-6 against 1.7e-5."""
+    from test_torch_models import bf16_spreads, check_bf16_parity
+    check_bf16_parity(bf16_spreads("video", dict(SMALL, batchSize=8),
+                                   _batch("video", 1, 8)))

@@ -18,8 +18,18 @@ optax's Adam state is the tuple ``(ScaleByAdamState(count, mu, nu),
 EmptyState())``; ``torch.optim.Adam`` keeps ``step``, ``exp_avg`` and
 ``exp_avg_sq`` per parameter.  The moments change layout as their
 parameters do (checkpoint/convert.py).  Both optimizers add eps after the
-bias correction, so a resume continues the same update.  The JAX package
-stores bf16 leaves as f32; so does this one (every float leaf is f32).
+bias correction, so a resume continues the same update.
+
+Under ``adamMomentsBf16`` the JAX optimizer state is the dict
+``{'count', 'mu', 'nu'}`` (train/step.py ``_adam_lowmem``), so its keys are
+
+    .opt_g['count']                     int32
+    .opt_g['mu'][...], .opt_g['nu'][...]  bf16 moments, stored as f32
+
+and the port's ``AdamBf16Moments`` casts them back to bf16 on restore.  A
+file of one kind does not resume a run of the other: it raises, naming
+both.  The JAX package stores bf16 leaves as f32; so does this one (every
+float leaf is f32).
 
 A keepBest file (``<name>_best_state.npz``) holds G only: its parameters,
 BN statistics and the step (``flatten_generator``).
@@ -41,6 +51,7 @@ import numpy as np
 import torch
 
 from video_filler_tpu_torch.checkpoint import convert
+from video_filler_tpu_torch.train.optim import AdamBf16Moments
 
 
 def _key(prefix: str, path: tuple[str, ...]) -> str:
@@ -91,7 +102,17 @@ def _take(stored: dict[str, np.ndarray], like: dict[str, torch.Tensor],
     return out
 
 
-def _adam_moments(module: torch.nn.Module, opt: torch.optim.Adam):
+def _adam_bases(tag: str, bf16: bool) -> tuple[str, str, str]:
+    """The (count, mu, nu) key prefixes of one optimizer's state in the
+    file: optax's ScaleByAdamState, or the adamMomentsBf16 dict."""
+    if bf16:
+        return (f".opt_{tag}['count']", f".opt_{tag}['mu']",
+                f".opt_{tag}['nu']")
+    base = f".opt_{tag}[0]"
+    return f"{base}.count", f"{base}.mu", f"{base}.nu"
+
+
+def _adam_moments(module: torch.nn.Module, opt: torch.optim.Optimizer):
     """(count, exp_avg by parameter name, exp_avg_sq by name); zeros for an
     optimizer that has not stepped."""
     mu, nu, counts = {}, {}, set()
@@ -114,9 +135,10 @@ def flatten_state(state) -> dict[str, np.ndarray]:
                              ("d", state.disc, state.opt_d)):
         _put(flat, module.state_dict(), f".params_{tag}", f".state_{tag}")
         count, mu, nu = _adam_moments(module, opt)
-        flat[f".opt_{tag}[0].count"] = np.asarray(count, np.int32)
-        _put(flat, mu, f".opt_{tag}[0].mu")
-        _put(flat, nu, f".opt_{tag}[0].nu")
+        k_count, k_mu, k_nu = _adam_bases(tag, isinstance(opt, AdamBf16Moments))
+        flat[k_count] = np.asarray(count, np.int32)
+        _put(flat, mu, k_mu)
+        _put(flat, nu, k_nu)
     flat[".step"] = np.asarray(state.step, np.int32)
     return flat
 
@@ -158,26 +180,35 @@ def _load_module(stored, module: torch.nn.Module, prefix: str,
             v.copy_(new[k])
 
 
-def _load_adam(stored, module: torch.nn.Module, opt: torch.optim.Adam,
+def _load_adam(stored, module: torch.nn.Module, opt: torch.optim.Optimizer,
                tag: str) -> None:
-    base = f".opt_{tag}[0]"
-    if f"{base}.count" not in stored:
-        if any(k.startswith(f".opt_{tag}['") for k in stored):
-            raise NotImplementedError(
-                "checkpoints with adamMomentsBf16 Adam states are not ported "
-                "yet (ROADMAP A.8)")
-        raise KeyError(f"checkpoint missing leaf {base}.count")
-    count = int(stored[f"{base}.count"])
+    bf16 = isinstance(opt, AdamBf16Moments)
+    k_count, k_mu, k_nu = _adam_bases(tag, bf16)
+    if k_count not in stored:
+        other = _adam_bases(tag, not bf16)[0]
+        if other in stored:
+            kinds = ("f32 Adam moments (adamMomentsBf16=0)",
+                     "bf16 Adam moments (adamMomentsBf16=1)")
+            raise ValueError(
+                f"the checkpoint holds {kinds[not bf16]} for opt_{tag}, but "
+                f"this run uses {kinds[bf16]}: resume with the setting the "
+                "file was written with")
+        raise KeyError(f"checkpoint missing leaf {k_count}")
+    count = int(stored[k_count])
     params = dict(module.named_parameters())
-    mu = _take(stored, params, f"{base}.mu")
-    nu = _take(stored, params, f"{base}.nu")
+    mu = _take(stored, params, k_mu)
+    nu = _take(stored, params, k_nu)
     opt.state.clear()
     for name, p in params.items():
-        opt.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": mu[name].to(p.device, p.dtype),
-            "exp_avg_sq": nu[name].to(p.device, p.dtype),
-        }
+        if bf16:
+            step = torch.tensor(count, dtype=torch.int32, device=p.device)
+            dtype = torch.bfloat16
+        else:
+            step = torch.tensor(float(count), dtype=torch.float32)
+            dtype = p.dtype
+        opt.state[p] = {"step": step,
+                        "exp_avg": mu[name].to(p.device, dtype),
+                        "exp_avg_sq": nu[name].to(p.device, dtype)}
 
 
 def checkpoint_path(ckpt_dir: str, name: str, epoch: int | str) -> str:

@@ -3,11 +3,16 @@
 A JAX tree nests dicts by layer name (``params["enc"]["conv0"]["w"]``); the
 port's state-dict key is the dotted path with the leaf renamed:
 
-    w -> weight    gamma -> weight    beta -> bias
+    w -> weight    b -> bias (a conv's, useBias)
+    gamma -> weight    beta -> bias (a BatchNorm's)
     mean -> running_mean (state)      var -> running_var (state)
 
+A state-dict ``bias`` is a BatchNorm beta when its layer is a BatchNorm
+(named ``bn*`` or ``*_bn``), else a conv bias ``b`` (``conv*``, ``up*``,
+``noise``, ``ctx``, ``pred``).
+
 Only the conv weights, leaf ``w``, change layout (ops/layers.py,
-ops/layers3d.py); BN leaves are 1-D and cross unchanged.  A conv weight
+ops/layers3d.py); BN leaves and conv biases are 1-D and cross unchanged.  A conv weight
 HWIO -> OIHW by ``transpose(3,2,0,1)``, and DHWIO -> OIDHW by
 ``transpose(4,3,0,1,2)``; a transposed conv, the layers named ``up*``,
 (k,k,cin,cout) -> (cin,cout,k,k) by ``transpose(2,3,0,1)``, and
@@ -21,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_PARAM_LEAF = {"w": "weight", "gamma": "weight", "beta": "bias"}
+_PARAM_LEAF = {"w": "weight", "b": "bias", "gamma": "weight", "beta": "bias"}
 _STATE_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 # JAX layout -> port layout of a conv weight, by (rank, transposed conv).
@@ -31,6 +36,10 @@ _TO_TORCH = {(4, False): (3, 2, 0, 1), (4, True): (2, 3, 0, 1),
 
 def _is_transposed(path: tuple[str, ...]) -> bool:
     return path[-2].startswith("up")
+
+
+def _is_batch_norm(layer: str) -> bool:
+    return layer.startswith("bn") or layer.endswith("_bn")
 
 
 def _flatten(tree: dict, prefix: tuple[str, ...] = ()):
@@ -69,12 +78,13 @@ def to_jax_layout(path: tuple[str, ...], w: np.ndarray) -> np.ndarray:
 def jax_path(key: str, ndim: int) -> tuple[bool, tuple[str, ...]]:
     """(True for a BN running statistic, the leaf's path in the JAX params
     or state tree) for a state-dict key whose tensor has ``ndim`` dims.  A
-    ``weight`` is a BN gamma when it is 1-D, a conv weight otherwise."""
+    ``weight`` is a BN gamma when it is 1-D, a conv weight otherwise; a
+    ``bias`` is a BN beta under a BatchNorm layer, a conv bias otherwise."""
     *scope, leaf = key.split(".")
     if leaf in ("running_mean", "running_var"):
         return True, (*scope, leaf[len("running_"):])
     if leaf == "bias":
-        return False, (*scope, "beta")
+        return False, (*scope, "beta" if _is_batch_norm(scope[-1]) else "b")
     if leaf == "weight":
         return False, (*scope, "gamma" if ndim == 1 else "w")
     raise KeyError(f"no JAX counterpart for state-dict key {key!r}")

@@ -12,26 +12,34 @@ from video_filler_tpu_torch.checkpoint import restore_subtree
 from video_filler_tpu_torch.config import Opt, resolve_device
 from video_filler_tpu_torch.models import build_generator, specs_for_regime
 from video_filler_tpu_torch.ops.layers import ConvBase
+from video_filler_tpu_torch.train.step import draw_noise
 
 T7_ITEM = "ROADMAP A.16, the Torch7 exchange"
 
 
 def generator_spec(opt: Opt, regime: str):
     """The regime's generator spec (a ``Video3DSpec`` for video3d); an
-    option the port does not run yet, or one the regime refuses, exits
-    naming it."""
+    option the regime refuses (noiseGen on video3d) exits naming it."""
     try:
         return specs_for_regime(opt, regime)[0]
-    except (NotImplementedError, ValueError) as e:  # noiseGen, useBias, ...
+    except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e)) from None
 
 
-def gen_input(opt: Opt, ctx: torch.Tensor) -> torch.Tensor:
-    """Generator input for an eval forward: the context itself.  noiseGen
-    generators, which also take a noise draw, are not ported yet."""
-    if opt.noiseGen:
-        raise SystemExit("noiseGen is not ported yet (ROADMAP A.8)")
-    return ctx
+def gen_input(opt: Opt, ctx: torch.Tensor, gen: torch.Generator | None = None,
+              noise: torch.Tensor | None = None):
+    """Generator input for an eval forward: the context, or for a noiseGen
+    G (ctx, z) with z (B,1,1,nz) -- ``noise`` when given (the JAX side's
+    draw in a test), else drawn from ``gen`` (default: seeded with
+    ``manualSeed``, as the JAX CLIs key theirs) by ``noisetype``, as the
+    train step draws it (video_filler_tpu/eval/common.py:12-27)."""
+    if not opt.noiseGen:
+        return ctx
+    if noise is None:
+        gen = gen if gen is not None else \
+            torch.Generator().manual_seed(opt.manualSeed)
+        noise = draw_noise(opt, gen, ctx.shape[0], ctx.device)
+    return ctx, noise.to(ctx.device)
 
 
 def load_generator(opt: Opt, regime: str, net_path: str,
@@ -42,10 +50,10 @@ def load_generator(opt: Opt, regime: str, net_path: str,
     script -- on ``device`` (default ``opt.device``), frozen.  D and the
     optimizer states in the file are ignored.
 
-    Weight residency: each conv weight, 2-D or 3-D, is cast to the compute
-    dtype once here; the conv layers cast to it on every call anyway, so
-    the numbers are the same and the per-call cast becomes a no-op.  BN
-    leaves stay f32."""
+    Weight residency: each conv weight and bias, 2-D or 3-D, is cast to
+    the compute dtype once here, as the JAX loader casts ``w`` and ``b``;
+    the conv layers cast to it on every call anyway, so the numbers are the
+    same and the per-call cast becomes a no-op.  BN leaves stay f32."""
     if net_path.endswith(".t7"):
         raise SystemExit(f"net=*.t7 (a Torch7 checkpoint) is not ported yet "
                          f"({T7_ITEM})")
@@ -57,6 +65,8 @@ def load_generator(opt: Opt, regime: str, net_path: str,
     for m in gen.modules():
         if isinstance(m, ConvBase):
             m.weight.data = m.weight.data.to(m.dtype)
+            if m.bias is not None:
+                m.bias.data = m.bias.data.to(m.dtype)
     return gen
 
 

@@ -25,8 +25,11 @@ from video_filler_tpu_torch.ops.image import normalize_uint8
 from video_filler_tpu_torch.utils import save_image_grid
 
 
-def run_demo(opt: Opt, out_path: str | None = None) -> dict[str, np.ndarray]:
-    """Writes the grid; returns the arrays (ctx, pred_center, inpainted)."""
+def run_demo(opt: Opt, out_path: str | None = None,
+             noise: torch.Tensor | None = None) -> dict[str, np.ndarray]:
+    """Writes the grid; returns the arrays (ctx, pred_center, inpainted).
+    A noiseGen G takes ``noise`` when given, else z drawn from
+    ``manualSeed`` (eval/common.gen_input)."""
     gen = load_generator(opt, "center", opt.net)
     files = sorted(f for f in os.listdir(opt.imDir)
                    if f.lower().endswith(IMG_EXTS))[: opt.batchSize]
@@ -38,7 +41,7 @@ def run_demo(opt: Opt, out_path: str | None = None) -> dict[str, np.ndarray]:
     with torch.inference_mode():
         real = normalize_uint8(torch.from_numpy(imgs).to(resolve_device(opt)))
         ctx = masks.center_mask_fill(real, opt.overlapPred)
-        pred_center = gen(gen_input(opt, ctx))
+        pred_center = gen(gen_input(opt, ctx, noise=noise))
         inpainted = masks.paste_center(ctx, pred_center, opt.overlapPred)
     out = {"ctx": ctx, "pred_center": pred_center.float(),
            "inpainted": inpainted}

@@ -63,7 +63,9 @@ def evaluate(opt: Opt, regime: str, n_batches: int = 8, seed: int = 222,
     Batches come from ``opt.evalSplit`` (``test`` with split<100 for
     held-out data).  The host sampler draws from RandomState(seed), the
     preprocess from torch.Generator(seed), or from ``draws[i]`` for batch i
-    (the regime's decision dict, train/step.py ``*_draws``)."""
+    (the regime's decision dict, train/step.py ``*_draws``).  A noiseGen G
+    gets one z per batch: ``draws[i]["z"]`` when given, else the next draw
+    of the same generator (video_filler_tpu/eval/metrics.py:80-82)."""
     device = resolve_device(opt)
     sampler, _ = make_sampler(opt, regime, split=opt.evalSplit)
     preprocess = make_preprocess(opt, regime)
@@ -80,7 +82,8 @@ def evaluate(opt: Opt, regime: str, n_batches: int = 8, seed: int = 222,
                 {k: torch.from_numpy(v).to(device) for k, v in host.items()},
                 draw_gen, draws=None if draws is None else draws[i])
             ctx, target, mask = _prepare(opt, regime, batch)
-            pred = gen(gen_input(opt, ctx))
+            z = None if draws is None else draws[i].get("z")
+            pred = gen(gen_input(opt, ctx, draw_gen, z))
             if regime == "center":
                 # hole metrics in the predicted crop; full-frame metrics on
                 # the crop pasted into the real 128² frame
@@ -128,7 +131,7 @@ def bench_inference(opt: Opt, regime: str, iters: int = 50,
     ``opt.batchSize``: one warm-up forward, then ``iters`` forwards between
     two device synchronizations, timed on the host clock.  video3d takes
     (B,T,S,S,nc) clips, S = 4 * 2**video3dLevels; the 2-D regimes
-    (B,128,128,nc_in)."""
+    (B,128,128,nc_in), with one fixed z for a noiseGen G."""
     device = resolve_device(opt)
     gen = loaded if loaded is not None else load_generator(opt, regime,
                                                            opt.net)
@@ -139,8 +142,9 @@ def bench_inference(opt: Opt, regime: str, iters: int = 50,
         shape = (opt.batchSize, 128, 128, generator_spec(opt, regime).nc_in)
     x = torch.from_numpy(np.random.RandomState(0).rand(*shape)
                          .astype(np.float32) * 2 - 1).to(device)
+    x = gen_input(opt, x, torch.Generator().manual_seed(0))
     with torch.inference_mode():
-        gen(gen_input(opt, x))
+        gen(x)
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(iters):

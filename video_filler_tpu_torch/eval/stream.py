@@ -75,7 +75,11 @@ def run_stream(opt: Opt, video: int = 0, start_frame: int | None = None,
                num_frames: int | None = None, out_dir: str | None = None
                ) -> dict:
     """Returns the first GIF_MAX_FRAMES inpainted frames (uint8), the frame
-    count and the frames per second of the whole loop."""
+    count and the frames per second of the whole loop.  A noiseGen G is
+    refused, as the JAX package refuses it (its eval/stream.py:67-68)."""
+    if opt.noiseGen:
+        raise ValueError("noiseGen does not compose with tiled whole-frame "
+                         "eval (same guard as serve.py's frame mode)")
     device = resolve_device(opt)
     gen = load_generator(opt, "video", opt.net)
     corpus = VideoCorpus(opt.DATA_ROOT,

@@ -25,9 +25,11 @@ from video_filler_tpu_torch.ops.image import normalize_uint8
 from video_filler_tpu_torch.utils import save_image_grid
 
 
-def run_test(opt: Opt, out_prefix: str | None = None
-             ) -> dict[str, np.ndarray]:
-    """Writes <prefix>_{real,ctx,inpainted}.png; returns those arrays."""
+def run_test(opt: Opt, out_prefix: str | None = None,
+             noise: torch.Tensor | None = None) -> dict[str, np.ndarray]:
+    """Writes <prefix>_{real,ctx,inpainted}.png; returns those arrays.  A
+    noiseGen G takes ``noise`` when given, else z drawn from
+    ``manualSeed`` (eval/common.gen_input)."""
     gen = load_generator(opt, "center", opt.net)
     rs = np.random.RandomState(opt.manualSeed or None)
     batch = center_sampler(opt, FolderIndex(opt.DATA_ROOT))(rs)
@@ -35,7 +37,7 @@ def run_test(opt: Opt, out_prefix: str | None = None
         real = normalize_uint8(
             torch.from_numpy(batch["raw"]).to(resolve_device(opt)))
         ctx = masks.center_mask_fill(real, opt.overlapPred)
-        pred = gen(gen_input(opt, ctx))
+        pred = gen(gen_input(opt, ctx, noise=noise))
         inpainted = masks.paste_center(ctx, pred, opt.overlapPred)
     out = {k: v.cpu().numpy() for k, v in
            (("real", real), ("ctx", ctx), ("inpainted", inpainted))}

@@ -37,12 +37,14 @@ def unfold_frames(clip: np.ndarray, nc: int) -> np.ndarray:
 
 
 def run_test_vid(opt: Opt, out_dir: str | None = None,
-                 regime: str = "video", draws: dict | None = None
-                 ) -> dict[str, np.ndarray]:
+                 regime: str = "video", draws: dict | None = None,
+                 noise: torch.Tensor | None = None) -> dict[str, np.ndarray]:
     """The channel-folded 2-D regime or the temporal 3-D one.  The
     preprocess's random decisions come from
     ``torch.Generator().manual_seed(manualSeed)``, or from ``draws`` (the
-    video preprocess's decision dict, train/step.py ``video_draws``)."""
+    video preprocess's decision dict, train/step.py ``video_draws``).  A
+    noiseGen G takes ``noise`` when given, else z drawn from
+    ``manualSeed`` (eval/common.gen_input)."""
     if regime not in ("video", "video3d"):
         raise SystemExit(f"eval.video handles regime=video|video3d, got "
                          f"{regime!r}")
@@ -60,7 +62,7 @@ def run_test_vid(opt: Opt, out_dir: str | None = None,
             torch.Generator().manual_seed(opt.manualSeed), draws=draws)
         ctx = masks.apply_logo_mask(batch["real"], batch["mask"],
                                     opt.maskValue)
-        fake = gen(gen_input(opt, ctx))
+        fake = gen(gen_input(opt, ctx, noise=noise))
         inpainted = masks.fill_in(batch["real"], batch["mask"], fake)
     frames = {k: unfold_frames(v.float().cpu().numpy(), opt.nc) for k, v in
               (("fake", fake), ("ctx", ctx), ("inpainted", inpainted))}

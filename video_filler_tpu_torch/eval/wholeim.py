@@ -73,7 +73,12 @@ def _load_padded_frames(opt: Opt, corpus: VideoCorpus,
 def run_wholeim(opt: Opt, out_dir: str | None = None
                 ) -> dict[str, np.ndarray]:
     """Writes the PNGs and GIFs; returns pred, inpaint, input, orig and
-    padmask.  A set ``initName`` runs the initializer cascade."""
+    padmask.  A set ``initName`` runs the initializer cascade.  A noiseGen
+    G is refused, as the JAX package refuses it (its
+    eval/wholeim.py:75-76)."""
+    if opt.noiseGen:
+        raise ValueError("noiseGen does not compose with tiled whole-frame "
+                         "eval (same guard as serve.py's frame mode)")
     input_len = opt.inputLen or opt.predLen
     if opt.predLen % input_len:
         raise ValueError("predLen must divide by inputLen "

@@ -2,6 +2,7 @@ import torch
 
 from video_filler_tpu_torch.models import context_encoder
 from video_filler_tpu_torch.models.context_encoder import (  # noqa: F401
+    ConditionalDiscriminator,
     Discriminator,
     DiscriminatorSpec,
     Generator,
@@ -27,11 +28,10 @@ def video3d_spec(opt) -> Video3DSpec:
     if opt.conditionAdv or opt.noiseGen:
         raise ValueError("conditionAdv and noiseGen are 2-D generator joins "
                          "(train.lua:107-150); regime=video3d has neither")
-    if opt.useBias:
-        raise NotImplementedError("useBias is not ported yet (ROADMAP A.8)")
     return Video3DSpec(nc=opt.nc, pred_len=opt.predLen, nef=opt.nef,
                        ngf=opt.ngf, ndf=opt.ndf, n_bottleneck=opt.nBottleneck,
-                       levels=opt.video3dLevels, dtype=opt.computeDtype)
+                       levels=opt.video3dLevels, use_bias=opt.useBias,
+                       dtype=opt.computeDtype)
 
 
 def check_fine_size(opt, regime: str) -> None:
@@ -47,8 +47,8 @@ def check_fine_size(opt, regime: str) -> None:
 def specs_for_regime(opt, regime: str):
     """(G spec, D spec) for a regime: the 2-D ``GeneratorSpec`` and
     ``DiscriminatorSpec``, or the 3-D family's one ``Video3DSpec`` twice.
-    What the port does not run yet raises NotImplementedError naming its
-    ROADMAP item."""
+    An option the regime refuses (conditionAdv or noiseGen on video3d)
+    raises ValueError."""
     if regime == "video3d":
         spec = video3d_spec(opt)
         return spec, spec
@@ -70,9 +70,14 @@ def build_generator(spec, gen: torch.Generator):
 
 
 def build_discriminator(spec, gen: torch.Generator):
-    """A discriminator of either family (by its spec) on the CPU,
-    initialised from ``gen``."""
-    cls = Discriminator3D if isinstance(spec, Video3DSpec) else Discriminator
+    """A discriminator of either family (by its spec), the conditionAdv one
+    where the spec asks for it, on the CPU, initialised from ``gen``."""
+    if isinstance(spec, Video3DSpec):
+        cls = Discriminator3D
+    elif spec.condition_adv:
+        cls = ConditionalDiscriminator
+    else:
+        cls = Discriminator
     return _initialised(cls(spec), gen)
 
 

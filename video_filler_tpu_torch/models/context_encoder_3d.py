@@ -11,7 +11,8 @@ unfold_time convert to and from the folded channels.
 The models take and return (B,T,H,W,C), the JAX layout; inside they run
 NCDHW in ``channels_last_3d`` memory.  Layer names match the JAX trees
 (``enc.conv{i}``, ``enc.bn{i}``, ``bott_bn``, ``dec.up{i}``, ``dec.bn{i}``),
-so state-dict keys are their dotted paths (checkpoint/convert.py).
+so state-dict keys are their dotted paths (checkpoint/convert.py); with
+``useBias`` every conv has a ``bias``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ class Video3DSpec:
     ndf: int = 64
     n_bottleneck: int = 4000
     levels: int = 5            # spatial halvings; input side = 4 * 2**levels
+    use_bias: bool = False
     dtype: str = "bfloat16"
 
     @property
@@ -75,17 +77,18 @@ class Generator3D(nn.Module):
         super().__init__()
         self.spec = spec
         dt, t, nb = spec.compute_dtype, spec.pred_len, spec.n_bottleneck
+        ub = spec.use_bias
         lrelu = lambda: nn.LeakyReLU(0.2)  # noqa: E731
         enc: dict[str, nn.Module] = {}
         cin = spec.nc
         widths = _enc_widths(spec.nef, spec.levels)
         for i, w in enumerate(widths):
-            enc[f"conv{i}"] = Conv3d(cin, w, dtype=dt)
+            enc[f"conv{i}"] = Conv3d(cin, w, dtype=dt, bias=ub)
             if i > 0:
                 enc[f"bn{i}"] = BatchNorm(w)
             enc[f"lrelu{i}"] = lrelu()
             cin = w
-        enc[f"conv{len(widths)}"] = Conv3d(cin, nb, (t, 4, 4), 1, 0, dt)
+        enc[f"conv{len(widths)}"] = Conv3d(cin, nb, (t, 4, 4), 1, 0, dt, ub)
         self.enc = Sequential(enc)
         self.bott_bn = BatchNorm(nb)
         self.bott_act = lrelu()
@@ -94,15 +97,16 @@ class Generator3D(nn.Module):
                       for i in range(spec.levels - 1)][::-1]
         first = dec_widths[0] if dec_widths else ngf
         dec: dict[str, nn.Module] = {
-            "up0": ConvTranspose3d(nb, first, (t, 4, 4), 1, 0, dt),
+            "up0": ConvTranspose3d(nb, first, (t, 4, 4), 1, 0, dt, ub),
             "bn0": BatchNorm(first), "relu0": nn.ReLU()}
         cin = first
         for i, w in enumerate(dec_widths[1:] + [ngf]):
-            dec[f"up{i + 1}"] = ConvTranspose3d(cin, w, dtype=dt)
+            dec[f"up{i + 1}"] = ConvTranspose3d(cin, w, dtype=dt, bias=ub)
             dec[f"bn{i + 1}"] = BatchNorm(w)
             dec[f"relu{i + 1}"] = nn.ReLU()
             cin = w
-        dec[f"up{spec.levels}"] = ConvTranspose3d(cin, spec.nc, dtype=dt)
+        dec[f"up{spec.levels}"] = ConvTranspose3d(cin, spec.nc, dtype=dt,
+                                                  bias=ub)
         dec["tanh"] = nn.Tanh()
         self.dec = Sequential(dec)
 
@@ -126,20 +130,22 @@ class Discriminator3D(Sequential):
     ``levels - 2`` conv+BN stages down to 4x4, a (T,4,4) valid conv."""
 
     def __init__(self, spec: Video3DSpec):
-        dt, ndf = spec.compute_dtype, spec.ndf
+        dt, ndf, ub = spec.compute_dtype, spec.ndf, spec.use_bias
         lrelu = lambda: nn.LeakyReLU(0.2)  # noqa: E731
         layers: dict[str, nn.Module] = {
-            "conv0": Conv3d(spec.nc, ndf // 2, dtype=dt), "lrelu0": lrelu(),
-            "conv1": Conv3d(ndf // 2, ndf, dtype=dt), "lrelu1": lrelu()}
+            "conv0": Conv3d(spec.nc, ndf // 2, dtype=dt, bias=ub),
+            "lrelu0": lrelu(),
+            "conv1": Conv3d(ndf // 2, ndf, dtype=dt, bias=ub),
+            "lrelu1": lrelu()}
         cin = ndf
         for i in range(2, spec.levels):
             w = ndf * min(2 ** (i - 1), 8)
-            layers[f"conv{i}"] = Conv3d(cin, w, dtype=dt)
+            layers[f"conv{i}"] = Conv3d(cin, w, dtype=dt, bias=ub)
             layers[f"bn{i}"] = BatchNorm(w)
             layers[f"lrelu{i}"] = lrelu()
             cin = w
         layers[f"conv{spec.levels}"] = Conv3d(cin, 1, (spec.pred_len, 4, 4),
-                                              1, 0, dt)
+                                              1, 0, dt, ub)
         super().__init__(layers)
         self.spec = spec
 

@@ -3,8 +3,9 @@
 Clips are (B,T,H,W,C) at the models' boundary; inside, the layers work on
 NCDHW tensors with PyTorch weight layouts in ``torch.channels_last_3d``
 memory (the NDHWC bytes), as the 2-D layers run channels-last.  Same
-conventions as ops/layers.py: bias-free, N(0,0.02) init, the input and the
-weight cast to the compute dtype before each conv; BatchNorm is the 2-D
+conventions as ops/layers.py: bias-free unless ``bias`` (added after the
+conv in the compute dtype), N(0,0.02) init, the input and the weight cast
+to the compute dtype before each conv; BatchNorm is the 2-D
 layers' (``F.batch_norm`` reduces over every axis but channels).
 
 Layouts against the JAX package: a conv weight DHWIO maps to OIDHW by
@@ -31,13 +32,16 @@ class Conv3d(ConvBase):
     triples.  Weight (cout, cin, kt, kh, kw)."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 4, 4), stride=(1, 2, 2),
-                 padding=(1, 1, 1), dtype: torch.dtype = torch.bfloat16):
-        super().__init__((cout, cin, *_triple(kernel)), _triple(stride),
-                         _triple(padding), dtype)
+                 padding=(1, 1, 1), dtype: torch.dtype = torch.bfloat16,
+                 bias: bool = False):
+        super().__init__((cout, cin, *_triple(kernel)), cout, _triple(stride),
+                         _triple(padding), dtype, bias)
 
     def forward(self, x):
-        return F.conv3d(x.to(self.dtype), self.weight.to(self.dtype),
-                        stride=self.stride, padding=self.padding)
+        return self.add_bias(F.conv3d(x.to(self.dtype),
+                                      self.weight.to(self.dtype),
+                                      stride=self.stride,
+                                      padding=self.padding))
 
 
 class ConvTranspose3d(ConvBase):
@@ -45,14 +49,15 @@ class ConvTranspose3d(ConvBase):
     transpose of ``Conv3d``.  Weight (cin, cout, kt, kh, kw)."""
 
     def __init__(self, cin: int, cout: int, kernel=(3, 4, 4), stride=(1, 2, 2),
-                 padding=(1, 1, 1), dtype: torch.dtype = torch.bfloat16):
-        super().__init__((cin, cout, *_triple(kernel)), _triple(stride),
-                         _triple(padding), dtype)
+                 padding=(1, 1, 1), dtype: torch.dtype = torch.bfloat16,
+                 bias: bool = False):
+        super().__init__((cin, cout, *_triple(kernel)), cout, _triple(stride),
+                         _triple(padding), dtype, bias)
 
     def forward(self, x):
-        return F.conv_transpose3d(x.to(self.dtype),
-                                  self.weight.to(self.dtype),
-                                  stride=self.stride, padding=self.padding)
+        return self.add_bias(F.conv_transpose3d(
+            x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride,
+            padding=self.padding))
 
 
 def fold_time(x: torch.Tensor) -> torch.Tensor:

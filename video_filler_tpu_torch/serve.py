@@ -14,7 +14,9 @@
 API (numpy .npz bodies):
   POST /inpaint   {"ctx": (H,W,C) or (B,H,W,C) uint8 masked context,
                    optional "mask": (H,W,1) or (B,H,W,1) uint8, nonzero =
-                   inside the hole}
+                   inside the hole; optional "noise": (nz,), (1,1,nz) or
+                   (B,1,1,nz) f32 for a noiseGen G, broadcast to the rows
+                   (omitted: zeros, so the result is deterministic)}
                   -> {"out": uint8 of ctx's shape}:
                    video/logo: G's output inside the mask, ctx outside (the
                      whole G output without a mask);
@@ -208,7 +210,8 @@ class InpaintServer:
         if opt.dataParallel > 1:
             raise SystemExit("serving dataParallel>1 is not ported yet "
                              "(ROADMAP A.14)")
-        gspec = generator_spec(opt, regime)  # noiseGen, ...: exit
+        gspec = generator_spec(opt, regime)  # noiseGen on video3d: exit
+        self.noise_gen, self.nz = bool(opt.noiseGen), int(opt.nz)
         self.device = resolve_device(opt)
         self.batch = int(opt.batchSize)
         self.fs = fs = int(opt.fineSize)
@@ -236,6 +239,11 @@ class InpaintServer:
                 f"frameH/frameW must both be >= fineSize {fs} (got "
                 f"{opt.frameH}x{opt.frameW}): the patch grid must fit the "
                 "frame")
+        if self.noise_gen and full:
+            # the JAX server refuses it in the video frame mode; its
+            # wholeim frame function passes G no z
+            raise SystemExit(f"{regime} full-frame serving does not compose "
+                             "with noiseGen")
         if self.wholeim_frame:
             if opt.predLen != 1:
                 raise SystemExit("wholeim full-frame serving needs predLen=1 "
@@ -257,14 +265,14 @@ class InpaintServer:
             self._device_fn = _wholeim_frame_fn(opt, gen, fs)
         else:
             composable, center_paste = self.composable, self.center_paste
-            frames = opt.predLen
+            frames, noise_gen = opt.predLen, self.noise_gen
 
-            def fn(ctx_u8, mask_u8):
+            def fn(ctx_u8, mask_u8, noise=None):
                 x = normalize_uint8(ctx_u8)
                 if video3d:
                     out = fold_time(gen(unfold_time(x, frames)).float())
                 else:
-                    out = gen(x).float()
+                    out = gen((x, noise) if noise_gen else x).float()
                 if composable:
                     # clients often send 0/255 masks: nonzero = in the hole
                     m = (mask_u8 > 0).float()
@@ -314,13 +322,17 @@ class InpaintServer:
 
     # ---- device side ----------------------------------------------------
 
-    def _serve_fn(self, ctx: np.ndarray, mask: np.ndarray) -> np.ndarray:
-        """One padded batch: uint8 ctx (batch, in_h, in_w, in_c) and mask
-        (batch, in_h, in_w, 1) to the device, the mode's function there,
-        the uint8 result back."""
-        out = self._device_fn(torch.from_numpy(ctx).to(self.device),
-                              torch.from_numpy(mask).to(self.device))
-        return out.cpu().numpy()
+    def _serve_fn(self, ctx: np.ndarray, mask: np.ndarray,
+                  noise: np.ndarray | None = None) -> np.ndarray:
+        """One padded batch: uint8 ctx (batch, in_h, in_w, in_c), mask
+        (batch, in_h, in_w, 1) and, for a noiseGen G, f32 noise
+        (batch, 1, 1, nz) to the device, the mode's function there, the
+        uint8 result back."""
+        args = [torch.from_numpy(ctx).to(self.device),
+                torch.from_numpy(mask).to(self.device)]
+        if self.noise_gen:
+            args.append(torch.from_numpy(noise).to(self.device))
+        return self._device_fn(*args).cpu().numpy()
 
     def _expire(self, fut: Future) -> None:
         if not fut.done():
@@ -348,10 +360,17 @@ class InpaintServer:
                 return item
             self._expire(item[2])
 
+    def _noise_arg(self) -> tuple:
+        """The batch's noise argument of ``_serve_fn``: zeros (B,1,1,nz)
+        for a noiseGen G, none otherwise."""
+        return ((np.zeros((self.batch, 1, 1, self.nz), np.float32),)
+                if self.noise_gen else ())
+
     def _warm_up(self) -> None:
         self._serve_fn(
             np.zeros((self.batch, self.in_h, self.in_w, self.in_c), np.uint8),
-            np.ones((self.batch, self.in_h, self.in_w, 1), np.uint8))
+            np.ones((self.batch, self.in_h, self.in_w, 1), np.uint8),
+            *self._noise_arg())
 
     def _run_batches(self, warm: Future | None = None) -> None:
         """The single device client: drain the queue into padded batches,
@@ -421,19 +440,23 @@ class InpaintServer:
                                np.uint8)
                 mask = np.ones((self.batch, self.in_h, self.in_w, 1),
                                np.uint8)
+                # rows without noise get zeros: a deterministic result
+                noise = self._noise_arg()
                 at = 0
-                for c, m, _, _ in items:
+                for c, m, _, _, *z in items:
                     ctx[at:at + c.shape[0]] = c
                     if m is not None:
                         mask[at:at + c.shape[0]] = m
+                    if z:
+                        noise[0][at:at + c.shape[0]] = z[0]
                     at += c.shape[0]
-                out = self._serve_fn(ctx, mask)
+                out = self._serve_fn(ctx, mask, *noise)
                 at = 0
-                for c, _, fut, _ in items:
+                for c, _, fut, *_ in items:
                     fut.set_result(out[at:at + c.shape[0]])
                     at += c.shape[0]
             except Exception as e:  # device errors go to the clients (500)
-                for _, _, fut, _ in items:
+                for _, _, fut, *_ in items:
                     if not fut.done():
                         fut.set_exception(e)
             with self._stats_lock:
@@ -443,9 +466,10 @@ class InpaintServer:
             self._release(carry[0].shape[0])
             carry[2].set_exception(RuntimeError("server closed"))
 
-    def infer(self, ctx: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
+    def infer(self, ctx: np.ndarray, mask: np.ndarray | None,
+              noise: np.ndarray | None = None) -> np.ndarray:
         """Queue one request (B, in_h, in_w, in_c) uint8 and wait for its
-        rows."""
+        rows.  ``noise``: (B,1,1,nz) for a noiseGen G (default zeros)."""
         n = ctx.shape[0]
         if n > self.batch:
             raise ValueError(f"request of {n} rows exceeds the server batch "
@@ -469,6 +493,14 @@ class InpaintServer:
             # to 0: a silent no-op inpaint
             raise ValueError(f"mask must be uint8 {{0,1}}, got {mask.dtype}"
                              " -- binarize client-side")
+        if noise is not None:
+            if not self.noise_gen:
+                raise ValueError("this server's generator takes no noise "
+                                 "(noiseGen=0)")
+            if noise.shape != (n, 1, 1, self.nz):
+                raise ValueError(f"noise must be ({n},1,1,{self.nz}), got "
+                                 f"{noise.shape}")
+            noise = np.asarray(noise, np.float32)
         t0 = time.perf_counter()
         fut: Future = Future()
         with self._stats_lock:
@@ -484,7 +516,9 @@ class InpaintServer:
                     f"request queue full ({self._pending_rows} rows pending, "
                     f"budget {self._max_pending_rows}): retry with backoff")
             self._pending_rows += n
-        self._queue.put_nowait((ctx, mask, fut, t0 + REQUEST_TIMEOUT_S))
+        # (ctx, mask, future, deadline[, noise]): noise only where posted
+        self._queue.put_nowait((ctx, mask, fut, t0 + REQUEST_TIMEOUT_S)
+                               + (() if noise is None else (noise,)))
         try:
             out = fut.result(timeout=REQUEST_TIMEOUT_S)
         except (TimeoutError, FutureTimeoutError) as e:
@@ -499,17 +533,26 @@ class InpaintServer:
     # ---- HTTP side ------------------------------------------------------
 
     def _parse(self, body: bytes):
-        """(ctx, mask, squeeze) of a POST body; ValueError -> 400."""
+        """(ctx, mask, noise, squeeze) of a POST body; ValueError -> 400."""
         with np.load(io.BytesIO(body), allow_pickle=False) as data:
             ctx = data["ctx"]
             mask = data["mask"] if "mask" in data.files else None
-            if "noise" in data.files:
-                raise ValueError("this server's generator takes no noise "
-                                 "(noiseGen=0)")
+            noise = data["noise"] if "noise" in data.files else None
         squeeze = ctx.ndim == 3
         if squeeze:
             ctx = ctx[None]
             mask = None if mask is None else mask[None]
+        if noise is not None:
+            if not self.noise_gen:
+                raise ValueError("this server's generator takes no noise "
+                                 "(noiseGen=0)")
+            noise = np.asarray(noise, np.float32)
+            if noise.ndim in (1, 3):   # (nz,) or (1,1,nz): every row
+                noise = np.broadcast_to(noise.reshape(1, 1, 1, -1),
+                                        (ctx.shape[0], 1, 1, noise.shape[-1]))
+            if noise.shape != (ctx.shape[0], 1, 1, self.nz):
+                raise ValueError(f"noise must be (B,1,1,{self.nz}), got "
+                                 f"{noise.shape}")
         ih, iw, c = self.in_h, self.in_w, self.in_c
         if ctx.dtype != np.uint8 or ctx.shape[1:] != (ih, iw, c):
             raise ValueError(f"ctx must be uint8 (B,{ih},{iw},{c}), got "
@@ -524,7 +567,7 @@ class InpaintServer:
         if mask is not None and mask.shape != (ctx.shape[0], ih, iw, 1):
             raise ValueError(f"mask must be (B,{ih},{iw},1), got "
                              f"{mask.shape}")
-        return ctx, mask, squeeze
+        return ctx, mask, noise, squeeze
 
     def _handler_class(self):
         server = self
@@ -549,12 +592,13 @@ class InpaintServer:
                     return
                 try:
                     n = int(self.headers.get("Content-Length", "0"))
-                    ctx, mask, squeeze = server._parse(self.rfile.read(n))
+                    ctx, mask, noise, squeeze = server._parse(
+                        self.rfile.read(n))
                 except Exception as e:  # noqa: BLE001 -- any bad body
                     self._send(400, "text/plain", str(e).encode())
                     return
                 try:
-                    out = server.infer(ctx, mask)
+                    out = server.infer(ctx, mask, noise)
                 except ValueError as e:  # a client error: oversize batch
                     self._send(400, "text/plain", str(e).encode())
                     return

@@ -67,10 +67,11 @@ from video_filler_tpu_torch.models import (
 )
 from video_filler_tpu_torch.ops import masks
 from video_filler_tpu_torch.train.step import (
+    check_condition_adv,
+    draw_noise,
     init_train_state,
     make_preprocess,
     make_train_step,
-    unsupported_step_options,
 )
 from video_filler_tpu_torch.utils import MetricsLogger, save_image_grid
 
@@ -82,11 +83,12 @@ _HIGHER_BETTER = {"psnr_db", "ssim"}
 
 def unsupported_options(opt: Opt, regime: str) -> list[str]:
     """Every requested option the port cannot run yet, each naming the
-    ROADMAP item that brings it."""
+    ROADMAP item that brings it, and every option the regime refuses."""
     out = []
     try:
-        specs_for_regime(opt, regime)      # conditionAdv, noiseGen, useBias
+        specs_for_regime(opt, regime)      # noiseGen/conditionAdv on video3d
         check_fine_size(opt, regime)       # video3d
+        check_condition_adv(opt, regime)   # center only
     except (NotImplementedError, ValueError) as e:
         out.append(str(e))
     checks = (
@@ -97,7 +99,6 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
         (opt.profileSteps > 0, "profileSteps (ROADMAP A.9)"),
     )
     out += [f"{what} is not ported yet" for bad, what in checks if bad]
-    out += unsupported_step_options(opt)
     return out
 
 
@@ -306,10 +307,13 @@ def train(opt: Opt, regime: str):
                 gen = torch.Generator().manual_seed(
                     step_seed(seed, step0 + done))
                 batch = preprocess(to_device(host_batch), gen)
-                metrics = step_fn(state, batch, init_net)
+                # a noiseGen step draws its z from the step's generator
+                metrics = step_fn(state, batch, init_net,
+                                  **({"gen": gen} if opt.noiseGen else {}))
                 if opt.display and (step + 1) % opt.display_iter == 0:
                     # The reference runs an extra batch through G every
-                    # display_iter steps (train.lua:427-445).
+                    # display_iter steps (train.lua:427-445); a noiseGen G
+                    # gets z drawn as the step draws it (noisetype).
                     shown = preprocess(to_device(loader.get_batch()),
                                        display_gen)
                     g_in = generator_input(opt, regime, shown)
@@ -317,6 +321,9 @@ def train(opt: Opt, regime: str):
                         if init_net is not None:
                             g_in = masks.fill_in(g_in, shown["mask"],
                                                  init_net(g_in))
+                        if opt.noiseGen:
+                            g_in = (g_in, draw_noise(opt, display_gen,
+                                                     g_in.shape[0], device))
                         fake = state.gen.eval()(g_in)
                     _display_dump(opt, regime, shown, fake, "display", epoch,
                                   step + 1)

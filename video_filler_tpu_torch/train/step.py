@@ -32,16 +32,23 @@ weights and BN buffers and the optimizers' moments.
   ``loss_g``, through the third D pass whose running statistics are not
   updated.  ``backward(inputs=...)`` keeps each loss off the other net.
 * Adam: ``torch.optim.Adam(betas=(beta1, 0.999), eps=1e-8)``, which adds eps
-  after bias correction, as optax does.  G's learning rate is 10x D's when
-  0 < wtl2 < 1 (train.lua:218-222).
+  after bias correction, as optax does, or ``AdamBf16Moments`` under
+  ``adamMomentsBf16``.  G's learning rate is 10x D's when 0 < wtl2 < 1
+  (train.lua:218-222).
+* The other step options of the JAX package: ``conditionAdv`` (center only:
+  every D pass takes (ctx, x)), ``noiseGen`` (G takes (ctx, z)),
+  ``gradAccum``, ``remat`` and ``useBias`` (conv biases trained by Adam, as
+  the JAX package trains them, not zeroed as the reference does).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from video_filler_tpu_torch.config import Opt, resolve_device
 from video_filler_tpu_torch.models import (
@@ -52,7 +59,9 @@ from video_filler_tpu_torch.models import (
 from video_filler_tpu_torch.ops import image as image_ops
 from video_filler_tpu_torch.ops import losses, masks
 from video_filler_tpu_torch.ops.cuda.fused_loss import fused_weighted_mse
+from video_filler_tpu_torch.ops.layers import running_stats_frozen
 from video_filler_tpu_torch.ops.layers3d import unfold_time
+from video_filler_tpu_torch.train.optim import AdamBf16Moments
 
 METRIC_KEYS = ("errD", "errD_real", "errD_fake", "errG", "errG_l2",
                "errG_gdl", "errG_total")
@@ -62,28 +71,17 @@ METRIC_KEYS = ("errD", "errD_real", "errD_fake", "errG", "errG_l2",
 class TrainState:
     gen: nn.Module           # models.Generator or Generator3D
     disc: nn.Module
-    opt_g: torch.optim.Adam
-    opt_d: torch.optim.Adam
+    opt_g: torch.optim.Optimizer   # torch.optim.Adam, or AdamBf16Moments
+    opt_d: torch.optim.Optimizer
     step: int = 0
 
 
-def unsupported_step_options(opt: Opt) -> list[str]:
-    """Step options of the JAX package this port does not run yet, each
-    with the ROADMAP item that brings it."""
-    out = []
-    if opt.gradAccum > 1:
-        out.append("gradAccum>1 is not ported yet (ROADMAP A.8)")
-    if opt.remat:
-        out.append("remat is not ported yet (ROADMAP A.8)")
-    if opt.adamMomentsBf16:
-        out.append("adamMomentsBf16 is not ported yet (ROADMAP A.8)")
-    return out
-
-
 def _optimizers(opt: Opt, gen: nn.Module, disc: nn.Module):
-    """Two Adams; G's LR is 10x D's when 0<wtl2<1 (train.lua:218-226)."""
+    """Two Adams, f32 moments or, with ``adamMomentsBf16``, bf16 ones; G's
+    LR is 10x D's when 0<wtl2<1 (train.lua:218-226)."""
     g_lr = opt.lr * 10.0 if 0.0 < opt.wtl2 < 1.0 else opt.lr
-    adam = lambda params, lr: torch.optim.Adam(  # noqa: E731
+    cls = AdamBf16Moments if opt.adamMomentsBf16 else torch.optim.Adam
+    adam = lambda params, lr: cls(  # noqa: E731
         params, lr=lr, betas=(opt.beta1, 0.999), eps=1e-8)
     return adam(gen.parameters(), g_lr), adam(disc.parameters(), opt.lr)
 
@@ -99,8 +97,37 @@ def init_train_state(opt: Opt, regime: str,
     return TrainState(g, d, opt_g, opt_d)
 
 
+def check_condition_adv(opt: Opt, regime: str) -> None:
+    """conditionAdv is the center trainer's; elsewhere it raises with the
+    JAX package's words (video_filler_tpu/train/step.py:144-152)."""
+    if opt.conditionAdv and regime != "center":
+        raise ValueError(
+            f"conditionAdv is only supported for regime=center, not "
+            f"{regime!r} (the reference forces it off in its other trainers)")
+
+
+def draw_noise(opt: Opt, gen: torch.Generator, batch: int,
+               device: torch.device | str) -> torch.Tensor:
+    """noiseGen's z, (B,1,1,nz) f32, drawn on the CPU from ``gen`` --
+    uniform in [-1,1] or standard normal by ``noisetype`` -- and moved to
+    ``device`` (train.lua:319-323; the JAX package's ``_draw_noise``)."""
+    shape = (batch, 1, 1, opt.nz)
+    if opt.noisetype == "uniform":
+        z = torch.rand(shape, generator=gen) * 2 - 1
+    else:
+        z = torch.randn(shape, generator=gen)
+    return z.to(device)
+
+
+def _remat_contexts():
+    """torch.utils.checkpoint's context_fn: the forward as it is, the
+    recompute with BN running-statistic updates off."""
+    return contextlib.nullcontext(), running_stats_frozen()
+
+
 def make_train_step(opt: Opt, regime: str, with_init: bool = False):
-    """Build ``step(state, batch, init_net=None) -> metrics`` for a regime.
+    """Build ``step(state, batch, init_net=None, noise=None, gen=None) ->
+    metrics`` for a regime.
 
     batch (on the state's device, NHWC float in [-1,1] unless noted):
       center : {'real': (B,fs,fs,nc)}
@@ -109,14 +136,25 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
       wholeim: {'real': (B,fs,fs,nc*4) target patches, 'mask': same-shape
                 {0,1}, 'masked': (B,fs,fs,nc*arrh*arrw) input patch array}
       video3d: {'real': (B,T,fs,fs,nc) contiguous, 'mask': (B,1,fs,fs,1)}
-    ``init_net`` (with_init only): the initializer generator.  metrics: 0-dim
-    f32 tensors on the device, keyed ``METRIC_KEYS``; reading them is the
-    caller's choice of sync point."""
-    specs_for_regime(opt, regime)  # raises on what is not ported yet
+    ``init_net`` (with_init only): the initializer generator.  noiseGen: G
+    takes (ctx, z); z is ``noise`` (B,1,1,nz) when given (the JAX side's
+    draw in a test), else drawn from the CPU generator ``gen``
+    (``draw_noise``).  metrics: 0-dim f32 tensors on the device, keyed
+    ``METRIC_KEYS``; reading them is the caller's choice of sync point.
+
+    gradAccum=n: the withInit cascade and the noise draw run on the whole
+    batch; then every operand whose first dim is the batch (ctx, the D
+    input, the target, (B,...) l2 weights, the mask, z) splits into n
+    microbatches -- the center ring weights (1,H,W,1) and a 0-dim wtl2
+    stay whole -- each runs forward and backward (BN batch statistics per
+    microbatch, running statistics chained through them), the summed
+    gradients and metrics are scaled by 1/n, and each net takes one Adam
+    update.  remat: G's apply and each D apply run under
+    ``torch.utils.checkpoint`` (non-reentrant), their recompute with BN
+    running-statistic updates off."""
+    specs_for_regime(opt, regime)  # conditionAdv/noiseGen on video3d raise
     check_fine_size(opt, regime)
-    bad = unsupported_step_options(opt)
-    if bad:
-        raise NotImplementedError("; ".join(bad))
+    check_condition_adv(opt, regime)
     if with_init and regime not in ("video", "video3d"):
         # The cascade composites netI's prediction inside the mask
         # (train_mycrit.lua:402-405); only the video trainers define it.
@@ -127,6 +165,7 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
     wtl2 = float(opt.wtl2)
     adv_coef = (1.0 - wtl2) if 0.0 < wtl2 < 1.0 else 1.0
     lam = float(opt.weight_nomask)
+    n_micro = int(opt.gradAccum)
     wtl2_t = torch.tensor(wtl2, dtype=torch.float32, device=device)
     composite = regime in ("video", "video3d", "wholeim") and (
         lam == 0.0 or (opt.compositeLtOne and lam < 1.0))
@@ -135,6 +174,12 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         ring = losses.overlap_l2_weights((half, half), opt.overlapPred, wtl2,
                                          device=device)[None]
     zero = torch.zeros((), dtype=torch.float32, device=device)
+
+    def apply(net, *args, **kw):
+        if not opt.remat:
+            return net(*args, **kw)
+        return checkpoint(net, *args, use_reentrant=False,
+                          context_fn=_remat_contexts, **kw)
 
     def prepare(batch):
         """(ctx, d_real, target, l2 weights, mask) for the regime."""
@@ -153,21 +198,16 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         w = wtl2_t * losses.mask_l2_weights(mask.float(), lam)
         return ctx, real, real, w, mask
 
-    def step(state: TrainState, batch, init_net: nn.Module | None = None
-             ) -> dict[str, torch.Tensor]:
-        ctx, d_real, target, l2_w, mask = prepare(batch)
-        if with_init:
-            with torch.no_grad():
-                fake_init = init_net.eval()(ctx)
-            ctx = masks.fill_in(ctx, mask, fake_init)
-        gen, disc = state.gen.train(), state.disc.train()
-
-        fake = gen(ctx)
+    def forward_backward(gen, disc, ctx, d_real, target, l2_w, mask, noise):
+        """One (micro)batch: the forwards, both losses, their backward into
+        the nets' ``.grad`` (summed onto what is there); the metrics."""
+        fake = apply(gen, (ctx, noise) if opt.noiseGen else ctx)
         d_fake = masks.fill_in(target, mask, fake) if composite else fake
+        d_in = (lambda x: (ctx, x)) if opt.conditionAdv else (lambda x: x)
         # D loss: real pass then fake pass, BN statistics updated in that
         # order (train.lua:299-345); the fake is detached.
-        logit_real = disc(d_real)
-        logit_fake = disc(d_fake.detach())
+        logit_real = apply(disc, d_in(d_real))
+        logit_fake = apply(disc, d_in(d_fake.detach()))
         err_d_real = losses.bce_with_logits(logit_real, 1.0)
         err_d_fake = losses.bce_with_logits(logit_fake, 0.0)
         loss_d = err_d_real + err_d_fake
@@ -175,7 +215,8 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         # G adversarial term: D again on the fake, batch statistics, running
         # statistics untouched (the reference reuses fDx's output,
         # train.lua:365).
-        err_g = losses.bce_with_logits(disc(d_fake, update_stats=False), 1.0)
+        err_g = losses.bce_with_logits(
+            apply(disc, d_in(d_fake), update_stats=False), 1.0)
         loss_g = adv_coef * err_g
         err_g_l2 = zero
         if wtl2 != 0.0:
@@ -194,17 +235,54 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
                 loss_g = loss_g + opt.wtgdl * gdl_val
             err_g_gdl = gdl_val.detach()
 
-        state.opt_g.zero_grad(set_to_none=True)
-        state.opt_d.zero_grad(set_to_none=True)
         loss_d.backward(inputs=list(disc.parameters()))
         loss_g.backward(inputs=list(gen.parameters()))
-        state.opt_g.step()
-        state.opt_d.step()
-        state.step += 1
         return {"errD": loss_d.detach(), "errD_real": err_d_real.detach(),
                 "errD_fake": err_d_fake.detach(), "errG": err_g.detach(),
                 "errG_l2": err_g_l2, "errG_gdl": err_g_gdl,
                 "errG_total": loss_g.detach()}
+
+    def step(state: TrainState, batch, init_net: nn.Module | None = None,
+             noise: torch.Tensor | None = None,
+             gen: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+        ctx, d_real, target, l2_w, mask = prepare(batch)
+        if with_init:
+            with torch.no_grad():
+                fake_init = init_net.eval()(ctx)
+            ctx = masks.fill_in(ctx, mask, fake_init)
+        if opt.noiseGen and noise is None:
+            if gen is None:
+                raise ValueError("a noiseGen step takes noise= or gen= (the "
+                                 "generator its z is drawn from)")
+            noise = draw_noise(opt, gen, ctx.shape[0], ctx.device)
+        operands = (ctx, d_real, target, l2_w, mask, noise)
+        b = ctx.shape[0]
+        if b % n_micro != 0:
+            raise ValueError(f"batchSize {b} must divide by gradAccum "
+                             f"{n_micro}")
+        m = b // n_micro
+        split = [isinstance(x, torch.Tensor) and x.dim() > 0
+                 and x.shape[0] == b for x in operands]
+        state.opt_g.zero_grad(set_to_none=True)
+        state.opt_d.zero_grad(set_to_none=True)
+        gen_net, disc = state.gen.train(), state.disc.train()
+        total = None
+        for i in range(n_micro):
+            mb = [x[i * m:(i + 1) * m] if s else x
+                  for x, s in zip(operands, split)]
+            metrics = forward_backward(gen_net, disc, *mb)
+            total = metrics if total is None else {
+                k: total[k] + v for k, v in metrics.items()}
+        if n_micro > 1:
+            inv = 1.0 / n_micro
+            for p in (*gen_net.parameters(), *disc.parameters()):
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            total = {k: v * inv for k, v in total.items()}
+        state.opt_g.step()
+        state.opt_d.step()
+        state.step += 1
+        return total
 
     return step
 
