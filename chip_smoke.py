@@ -9,6 +9,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  loaded by the port's imports.
   2. build    -- nvcc builds video_filler_tpu_torch/csrc/fused_loss.cu for
                  sm_90a; prints the seconds and ptxas's register report.
+                 g++ builds the native decode (csrc/vf_native.cpp, host
+                 code); its path, or why it failed, decides and names the
+                 host samplers' decode path (native or Python).
   3. kernels  -- the fused weighted-MSE kernels against their plain PyTorch
                  versions on the card, at the operands the main paths give
                  them: the center shape (64,64,64,3) with (1,64,64,1) ring
@@ -56,13 +59,30 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  video adamMomentsBf16 with a checkpoint and 2 more steps on
                  its autoResume (the bf16 moments read back exactly); video
                  remat (its peak memory printed beside the plain video
-                 run's); center useBias (G's conv biases trained).  Every
-                 logged metric finite; each loss kernel launched once per
-                 microbatch in each direction (steps x gradAccum) on every
-                 run, all on the row path (no generic launch).
+                 run's); center useBias (G's conv biases trained).  Then
+                 ``dataDevice=1`` (the corpus resident on the card, batches
+                 synthesised there): center for 10 steps with
+                 ``displayServer=1`` (GET /metrics returns the run's steps)
+                 and ``profileSteps=3`` (the Chrome trace names both
+                 ``wmse_row_*`` kernels, 3 launches each) and a checkpoint
+                 for phase 7; video (predLen 4) for 2 steps with a
+                 checkpoint and 2 more on its autoResume; video3d and
+                 wholeim for 2 each; each run's corpus MB, rejection rounds
+                 and host syncs per step; ``load_corpus`` decodes in Python.
+                 Every logged metric finite; each loss kernel launched once
+                 per microbatch in each direction (steps x gradAccum) on
+                 every run, all on the row path (no generic launch).
   6. timing   -- 20 steps on one device-resident batch, center, video,
                  video3d and each step option of phase 5: ms/step,
-                 clips/s, peak memory, device idle share.
+                 clips/s, peak memory, device idle share.  Then center and
+                 video as the loop runs them, batch and all: the host
+                 loader's step (decode, copy, preprocess, step) and the
+                 ``dataDevice`` step (sampler, preprocess, step) in turns
+                 (host, device, device, host): ms/step, idle share, peak
+                 memory (the corpus on the card for the device passes
+                 only), the sampler's ms alone; the sampler's gathers on
+                 the card equal the CPU's on the same decisions (center,
+                 video, wholeim; uint8, exactly).
      (--profile adds a torch.profiler table of device time by kernel.)
   7. inference -- in phase 5's directory, on its checkpoints and corpus:
                  tiny f32 inference on the card against the CPU (the
@@ -85,7 +105,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  ``bench_inference`` at batch 64, and its server under 16
                  concurrent single-row requests, 8 with their own z (each
                  within one uint8 level of its solo result; a row without
-                 noise equal to the zero-noise result).
+                 noise equal to the zero-noise result).  The Torch7
+                 exchange: the port's export CLI writes the dataDevice
+                 center checkpoint as a .t7, loaded on the card its G gives
+                 the .npz-loaded G's output (rtol 1e-3, atol 1e-3), and a
+                 server on the .t7 answers a request within one uint8 level
+                 of a server on the .npz.
 Then one JSON line of the kernels' numbers (at the video geometry, and by
 geometry under "geometries"), and as the last line
 {"ok": true, "device": {...}}.
@@ -685,11 +710,16 @@ def main_path(torch, fl, loop, step_mod, synthetic, make_image_folder, tmp):
     options, launches_opt = option_runs(torch, fl, loop, step_mod,
                                         center_args, video, tmp)
     add(launches_opt)
+    launches_dd, dd_center = data_device_runs(torch, fl, loop, step_mod,
+                                              center_args, video, video3d,
+                                              tmp)
+    add(launches_dd)
     print(f"kernel launches over every main-path run: {total}")
     return {"center_state": state_c, "center_args": center_args,
             "video": video, "video3d": video3d, "launches": total,
             "launches_video3d": launches3, "options": options,
-            "launches_options": launches_opt}
+            "launches_options": launches_opt, "launches_dd": launches_dd,
+            "dd_center": dd_center}
 
 
 def option_runs(torch, fl, loop, step_mod, center_args, video, tmp):
@@ -772,6 +802,263 @@ def option_runs(torch, fl, loop, step_mod, center_args, video, tmp):
     gc.collect()
     print(f"kernel launches over the step-option runs: {total}")
     return runs, total
+
+
+def data_device_runs(torch, fl, loop, step_mod, center_args, video, video3d,
+                     tmp):
+    """Phase 5, ``dataDevice=1`` through ``loop.main`` at full width: center
+    for 10 steps with the dashboard (read as the loop closes it) and a
+    3-step profiler trace (its CUDA kernels read back), checkpointed for
+    phase 7; video with a checkpoint and its autoResume; video3d; wholeim.
+    Prints each run's rejection rounds and host syncs per step.  Returns
+    (the launch totals, the center checkpoint's path)."""
+    from video_filler_tpu_torch.data import device_data
+    from video_filler_tpu_torch.utils import Dashboard
+    n = OPTION_STEPS
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    samplers, seen = [], {}
+    make = loop.device_data.DeviceSampler
+
+    def recording(*a, **k):
+        samplers.append(make(*a, **k))
+        return samplers[-1]
+
+    class Recording(Dashboard):
+        def close(self):
+            seen["metrics"] = get_status(self.port, "/metrics?n=50")
+            super().close()
+
+    vid = [*video[:-1], f"ntrain={64 * n}", "dataDevice=1"]
+    runs = [
+        ("dd_center", [*center_args, "dataDevice=1", "niter=2",
+                       "checkpointEvery=2", "displayServer=1",
+                       "display_port=0", "profileSteps=3",
+                       f"profileDir={j('profile')}"],
+         2 * MAIN_STEPS, [1] * MAIN_STEPS + [2] * MAIN_STEPS),
+        ("dd_video", [*vid, "niter=1", "checkpointEvery=1"], n, [1] * n),
+        ("dd_video", [*vid, "niter=2", "checkpointEvery=5", "autoResume=1"],
+         n, [2] * n),
+        ("dd_video3d", [*video3d, f"ntrain={64 * n}", "dataDevice=1",
+                        "niter=1", "checkpointEvery=5"], n, [1] * n),
+        ("dd_wholeim", ["regime=wholeim", *WIDTH, f"DATA_ROOT={j('corpus')}",
+                        f"maskName={j('mask.png')}", "loadSize=240",
+                        "weight_nomask=0.05", f"ntrain={64 * n}", "niter=1",
+                        "checkpointEvery=5", "dataDevice=1"], n, [1] * n),
+    ]
+    total = {"fwd": 0, "bwd": 0, "row": 0, "generic": 0}
+    loop.device_data.DeviceSampler = recording
+    loop.Dashboard = Recording
+    try:
+        for name, args, steps, epochs in runs:
+            state, launches = run_main(torch, fl, loop, step_mod, args, name,
+                                       steps, tmp, epochs)
+            st = samplers[-1].stats
+            if st["batches"] != steps or (
+                    st["syncs"] != (0 if name == "dd_center"
+                                    else st["rounds"])):
+                fail(f"{name}: sampler stats {st} over {steps} steps")
+            print(f"{name}: dataDevice sampler {st['batches']} batches, "
+                  f"{st['rounds'] / steps:.2f} rounds and "
+                  f"{st['syncs'] / steps:.2f} host syncs per step "
+                  f"({st['rounds'] - st['batches']} "
+                  "extra rejection rounds); load_corpus decoded in Python "
+                  "(data/decode.py)")
+            if name == "dd_video" and "autoResume=1" in args \
+                    and state.step != 2 * n:
+                fail(f"the resumed dataDevice video run ended at step "
+                     f"{state.step}")
+            del state
+            gc.collect()
+            for k in total:
+                total[k] += launches[k]
+    finally:
+        loop.device_data.DeviceSampler = make
+        loop.Dashboard = Dashboard
+    code, body = seen.get("metrics", (None, b""))
+    steps = [r["step"] for r in json.loads(body) if "step" in r] \
+        if code == 200 else []
+    if steps != list(range(MAIN_STEPS)) * 2:
+        fail(f"dashboard: GET /metrics gave {code}, steps {steps}")
+    print(f"dashboard: GET /metrics during dd_center returned its "
+          f"{len(steps)} logged steps; closed with the run")
+    traces = [f for f in os.listdir(j("profile")) if f.endswith(".json")]
+    if len(traces) != 1:
+        fail(f"profileSteps=3 wrote {traces} under {j('profile')}")
+    with open(j("profile", traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    counts = {k: sum(k in name for name in kernels)
+              for k in ("wmse_row_fwd_kernel", "wmse_row_bwd_kernel")}
+    if counts != {k: 3 for k in counts}:
+        fail(f"profiler trace {traces[0]}: loss-kernel launches {counts} "
+             "over its 3 steps")
+    print(f"profiler trace {traces[0]}: {len(kernels)} CUDA kernels over 3 "
+          f"steps, among them {counts}")
+    print(f"kernel launches over the dataDevice runs: {total}")
+    return total, j("checkpoints", "dd_center_2_state.npz")
+
+
+def sampler_parity(torch, device_data, opt, regime, arrays, meta):
+    """The dataDevice gathers on the card against the same gathers on the
+    CPU, one batch of decisions drawn on the card: uint8, exactly equal."""
+    dev = device_data.DeviceSampler(opt, regime, meta, opt.device)
+    cpu = device_data.DeviceSampler(opt.replace(device="cpu"), regime, meta,
+                                    "cpu")
+    d = dev.draws(torch.Generator(device=opt.device).manual_seed(5),
+                  opt.batchSize)
+    got = dev.gather(device_data.to_device(arrays, opt.device), d)
+    ref = cpu.gather(device_data.to_device(arrays, "cpu"),
+                     {k: v.cpu() for k, v in d.items()})
+    for k in ref:
+        if got[k].device.type != "cuda" or \
+                not torch.equal(got[k].cpu(), ref[k]):
+            fail(f"dataDevice {regime}: the card's {k} gather differs from "
+                 "the CPU's on the same decisions")
+    print(f"dataDevice {regime}: the card's gathers equal the CPU's on one "
+          f"batch of the card's decisions ({', '.join(f'{k} {tuple(v.shape)}' for k, v in got.items())})")
+
+
+def data_device_timing(torch, np, step_mod, loop, from_args, split_regime,
+                       run, smi):
+    """Phase 6, center and video as the loop runs them: the host loader's
+    step (a batch from the threaded samplers, copied, preprocessed, the
+    step; the previous step's metrics read, as the loop logs them) and the
+    dataDevice step (the sampler on the resident corpus, preprocess, the
+    step), in turns host, device, device, host on one state, each over
+    TIMED_STEPS after its warm-up.  The corpus is on the card for the
+    device passes only, so their peak memory counts it and the host
+    passes' does not.  No claim is made."""
+    from video_filler_tpu_torch.data import device_data
+    from video_filler_tpu_torch.data.pipeline import DataLoader, make_sampler
+    for regime, args in (("center", run["center_args"]),
+                         ("video", run["video"])):
+        opt = from_args(split_regime(args)[1])
+        state = step_mod.init_train_state(opt, regime,
+                                          torch.Generator().manual_seed(0))
+        preprocess = step_mod.make_preprocess(opt, regime)
+        step_fn = step_mod.make_train_step(opt, regime)
+        loader = DataLoader(make_sampler(opt, regime)[0], opt.nThreads,
+                            seed=1, prefetch_depth=opt.prefetchDepth)
+        t0 = time.perf_counter()
+        arrays, meta = device_data.load_corpus(opt, regime)
+        load_s = time.perf_counter() - t0
+        mb = sum(a.nbytes for a in arrays) / 1e6
+        sampler_parity(torch, device_data, opt, regime, arrays, meta)
+        sampler = device_data.DeviceSampler(opt, regime, meta, opt.device)
+        dgen = torch.Generator(device=opt.device)
+        prev, corpus = {}, None
+
+        def host_batch(i):
+            return {k: torch.from_numpy(v).to(opt.device)
+                    for k, v in loader.get_batch().items()}
+
+        def dev_batch(i):
+            return sampler(corpus, dgen.manual_seed(loop.data_seed(1, i)))
+
+        def one(get, i):
+            batch = preprocess(get(i), torch.Generator().manual_seed(i))
+            if prev:
+                float(prev["m"]["errG_l2"])   # the loop's one-late read
+            prev["m"] = step_fn(state, batch)
+
+        def timed(get, warm, steps=TIMED_STEPS):
+            for i in range(warm):
+                one(get, i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(steps):
+                one(get, i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / steps
+            busy = device_ms(lambda: one(get, 0), 5)
+            return ms, busy, torch.cuda.max_memory_allocated() / 1e9
+
+        try:
+            out = {"host": [], "device": []}
+            # the host loader's warm-up drains its prefetched backlog, so
+            # the timed steps wait on what the threads decode meanwhile;
+            # the corpus is resident for the device passes only
+            backlog = opt.nThreads * opt.prefetchDepth
+            for kind in ("host", "device", "device", "host"):
+                if kind == "device" and corpus is None:
+                    corpus = device_data.to_device(arrays, opt.device)
+                if kind == "host" and corpus is not None:
+                    sample_ms = cuda_ms(lambda: dev_batch(0), 20)
+                    corpus = None
+                out[kind].append(
+                    timed(host_batch, 3 + backlog) if kind == "host"
+                    else timed(dev_batch, 3))
+        finally:
+            loader.close()
+        st = sampler.stats
+        rounds, syncs = (st[k] / st["batches"] for k in ("rounds", "syncs"))
+        for kind, rows in out.items():
+            for i, (ms, busy, peak) in enumerate(rows):
+                print(f"{regime} loop step, {kind} batches ({i + 1} of 2): "
+                      f"{ms:.2f} ms/step, {opt.batchSize * 1e3 / ms:.1f} "
+                      f"clips/s, device busy {busy:.2f} ms, idle share "
+                      f"{100 * (1 - busy / ms):.1f}%, peak memory "
+                      f"{peak:.2f} GB on {smi}")
+        print(f"{regime} dataDevice: corpus {mb:.1f} MB resident "
+              f"({meta['desc']}; load_corpus {load_s:.1f} s in Python), "
+              f"sampler {sample_ms:.3f} ms per batch alone, {rounds:.2f} "
+              f"rounds and {syncs:.2f} host syncs per batch")
+        del state, arrays, sampler, prev
+        gc.collect()
+    data = [a for a in run["video"] if a.startswith(("DATA_ROOT=",
+                                                      "maskName="))]
+    opt = from_args([*WIDTH, "loadSize=240", *data])
+    sampler_parity(torch, device_data, opt, "wholeim",
+                   *device_data.load_corpus(opt, "wholeim"))
+
+
+def t7_exchange(torch, np, from_args, split_regime, center_args, net, tmp,
+                smi):
+    """Phase 7, the Torch7 exchange on the card: the port's export CLI
+    writes the dataDevice center checkpoint as a .t7; its G on the card
+    against the .npz's (rtol 1e-3, atol 1e-3); one request to a server on
+    each, within one uint8 level."""
+    from video_filler_tpu_torch.eval import export
+    from video_filler_tpu_torch.eval.common import load_generator
+    from video_filler_tpu_torch.serve import InpaintServer
+    out = os.path.join(tmp, "dd_center_netG.t7")
+    export.main(["regime=center", f"net={net}", f"out={out}",
+                 *split_regime(center_args)[1]])
+    opt = from_args(split_regime(center_args)[1])
+    x = torch.from_numpy(np.random.RandomState(11).uniform(
+        -1, 1, (64, 128, 128, 3)).astype(np.float32)).to(opt.device)
+    with torch.inference_mode():
+        ref = load_generator(opt, "center", net)(x).float()
+        g7 = load_generator(opt, "center", out)
+        got = g7(x).float()
+    if next(g7.parameters()).device.type != "cuda":
+        fail("the .t7 generator is not on the card")
+    err = (got - ref).abs()
+    if bool((err > 1e-3 + 1e-3 * ref.abs()).any()):
+        fail(f".t7 G against the .npz G: max|diff| {float(err.max()):.3e}")
+    print(f"Torch7: exported {os.path.basename(net)} to "
+          f"{os.path.basename(out)} ({os.path.getsize(out)} bytes); its G on "
+          f"the card at batch 64 within {float(err.max()):.2e} of the .npz "
+          "G's (rtol 1e-3, atol 1e-3)")
+    rs = np.random.RandomState(12)
+    ctx = rs.randint(0, 256, (128, 128, 3), np.uint8)
+    answers = []
+    for path in (out, net):
+        srv = InpaintServer(opt, "center", path, max_delay_ms=1.0)
+        try:
+            t0 = time.perf_counter()
+            code, got_u8 = post(srv.port, ctx=ctx)
+            ms = (time.perf_counter() - t0) * 1e3
+            if code != 200:
+                fail(f"server on {os.path.basename(path)}: HTTP {code}")
+            answers.append(got_u8)
+        finally:
+            srv.close()
+    n = u8_levels("server on the .t7 against the .npz", *answers)
+    print(f"Torch7: a server on the .t7 answered one request in {ms:.1f} ms "
+          f"on {smi}, within one uint8 level of the .npz server ({n} values "
+          "differ)")
 
 
 def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
@@ -999,9 +1286,10 @@ def inference_parity(torch, np, Opt, step_mod, tmp):
 
 
 def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
-              video3d, noise_args, tmp, smi):
+              video3d, noise_args, center_args, dd_net, tmp, smi):
     """Phase 7: the loader, eval.metrics, the tiled and streaming evals and
-    the server, at full width on the phase 5 checkpoints and corpus."""
+    the server, at full width on the phase 5 checkpoints and corpus; then
+    the Torch7 exchange on the dataDevice center checkpoint."""
     from video_filler_tpu_torch.eval import metrics
     from video_filler_tpu_torch.eval.common import load_generator
     from video_filler_tpu_torch.eval.stream import run_stream
@@ -1125,6 +1413,8 @@ def inference(torch, np, fl, Opt, from_args, split_regime, step_mod, video,
     noise_inference(torch, np, metrics, load_generator, InpaintServer,
                     from_args(split_regime(noise_args)[1]),
                     j("checkpoints", "center_noiseGen_1_state.npz"), smi)
+    t7_exchange(torch, np, from_args, split_regime, center_args, dd_net, tmp,
+                smi)
     print(f"loss-kernel launches during inference: {dict(fl.LAUNCHES)} "
           f"(inference runs no hand-written kernel)")
 
@@ -1283,7 +1573,7 @@ def main() -> None:
     import numpy as np
 
     from video_filler_tpu_torch.config import Opt, from_args, split_regime
-    from video_filler_tpu_torch.data import synthetic
+    from video_filler_tpu_torch.data import native, synthetic
     from video_filler_tpu_torch.data.synthetic import make_image_folder
     from video_filler_tpu_torch.ops import losses, masks
     from video_filler_tpu_torch.ops.cuda import build
@@ -1319,6 +1609,15 @@ def main() -> None:
     for line in log.splitlines():
         if "ptxas" in line or "spill" in line:
             print("  " + line.strip())
+    t0 = time.perf_counter()
+    if native.available():
+        print(f"built {os.path.relpath(native.library_path(), HERE)} with "
+              f"g++ {' '.join(native.GXX_FLAGS)} in "
+              f"{time.perf_counter() - t0:.1f} s: the host samplers of "
+              "phases 5-7 decode natively (data/native.py)")
+    else:
+        print(f"vf_native unavailable ({native.unavailable_reason()}): the "
+              "host samplers of phases 5-7 take the Python decode")
 
     phase("3 kernels vs plain")
     smi_line = smi.splitlines()[0]
@@ -1337,11 +1636,15 @@ def main() -> None:
         timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
                profile)
         gc.collect()
+        data_device_timing(torch, np, step_mod, loop, from_args,
+                           split_regime, run, smi_line)
+        gc.collect()
 
         phase("7 inference")
         inference(torch, np, fl, Opt, from_args, split_regime, step_mod,
                   run["video"], run["video3d"],
-                  run["options"]["center_noiseGen"][1], tmp, smi_line)
+                  run["options"]["center_noiseGen"][1], run["center_args"],
+                  run["dd_center"], tmp, smi_line)
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"

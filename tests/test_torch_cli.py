@@ -55,14 +55,22 @@ def test_cli_trains_two_steps(tmp_path):
         assert (tmp_path / "display" / f"cli_e1_s2_{suffix}.png").exists()
 
 
-@pytest.mark.parametrize("arg,item", [
-    ("seqParallel=2", "A.14"),
-    ("dataDevice=1", "A.10"), ("modelParallel=2", "A.14"),
-    ("displayServer=1", "A.9"), ("profileSteps=3", "A.9"),
-])
-def test_unsupported_option_exits_naming_its_roadmap_item(arg, item):
-    with pytest.raises(SystemExit, match=rf"ROADMAP {item}"):
-        loop.main([*TINY, arg])
+@pytest.mark.parametrize("args,match", [
+    (["seqParallel=2"], "ROADMAP A.14"),
+    (["modelParallel=2"], "ROADMAP A.14"),
+    # the JAX package's refusals of the ported dataDevice
+    (["dataDevice=1", "display=1"], "incompatible with display=1"),
+    (["dataDevice=1", "display=0", "seqParallel=2"],
+     "dataDevice does not support seqParallel"),
+    (["dataDevice=1", "display=0", "loadSize=-1"],
+     "requires a deterministic loadSize"),
+], ids=["seqParallel=2-A.14", "modelParallel=2-A.14", "dataDevice-display",
+        "dataDevice-seqParallel", "dataDevice-loadSize"])
+def test_unsupported_option_exits_naming_its_roadmap_item(args, match):
+    """The multi-device options exit naming their ROADMAP item; dataDevice
+    refuses what the JAX package refuses, before any resource exists."""
+    with pytest.raises(SystemExit, match=match):
+        loop.main([*TINY, *args])
 
 
 SMALL = ["device=cpu", "batchSize=2", "nef=8", "ngf=8", "ndf=8",

@@ -1,10 +1,12 @@
 """The port's host data code against the JAX package's: samplers fed the
-same RandomState give byte-identical batches (the JAX side on its Python
-decode path, VF_NO_NATIVE=1), on synthetic corpora both packages write
-identically."""
+same RandomState give byte-identical batches, on the Python decode path
+(VF_NO_NATIVE=1) and on the native one, on synthetic corpora both packages
+write identically; the port's native decode against its Python decode and
+the JAX package's native decode."""
 
 import filecmp
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -14,7 +16,10 @@ from video_filler_tpu.data import index as jindex
 from video_filler_tpu.data import pipeline as jpipe
 from video_filler_tpu.data import synthetic as jsynth
 from video_filler_tpu_torch.config import Opt
+from video_filler_tpu_torch.ops.cuda.build import BUILD_DIR
+from video_filler_tpu_torch.data import decode as tdecode
 from video_filler_tpu_torch.data import index as tindex
+from video_filler_tpu_torch.data import native as tnative
 from video_filler_tpu_torch.data import pipeline as tpipe
 from video_filler_tpu_torch.data import synthetic as tsynth
 
@@ -148,3 +153,116 @@ def test_make_sampler_refusals_match(corpora):
                            "video", split="test")
     with pytest.raises(ValueError, match="unknown regime"):
         tpipe.make_sampler(Opt(device="cpu"), "video4d")
+
+
+# --- the native decode (data/native.py, csrc/vf_native.cpp) ---------------
+
+@pytest.fixture(scope="module")
+def toolchain():
+    """What the native build needs: g++ with jpeglib.h and png.h."""
+    probe = "#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+    try:
+        ok = subprocess.run(["g++", "-E", "-x", "c++", "-"], input=probe,
+                            capture_output=True, text=True,
+                            timeout=60).returncode == 0
+    except OSError:
+        ok = False
+    if not ok:
+        pytest.skip("no g++ with jpeglib.h and png.h to build vf_native")
+    assert tnative.available(), tnative.unavailable_reason()
+
+
+def test_native_decode_is_the_python_decode_and_the_jax_native(corpora,
+                                                              toolchain):
+    """Without a resample (PNG frames at their own size) the native decode
+    is the Python decode byte for byte; with one (loadSize 150) it is the
+    JAX package's native decode byte for byte and the Python decode within
+    the JAX suite's bound (mean |diff| < 2, another bilinear resampler)."""
+    from video_filler_tpu.data import native as jnative
+    root, _, _ = corpora
+    paths = sorted(str(p) for p in (root / "corpus" / "gt").iterdir())[:4]
+    clips = [paths[i:i + 2] for i in range(3)]
+    seeds = np.arange(1, 4, dtype=np.uint64)
+    for load in (180, 150):      # the frames' short side: no resample
+        got = tnative.load_frames(paths, load, 180, 240)
+        jgot = jnative.load_frames(paths, load, 180, 240)
+        np.testing.assert_array_equal(got[1], jgot[1])
+        assert got[2] == jgot[2] == 0
+        for i, p in enumerate(paths):
+            h, w = got[1][i]          # the slot beyond (h, w) is unwritten
+            np.testing.assert_array_equal(got[0][i, :h, :w],
+                                          jgot[0][i, :h, :w])
+            ref = tdecode.load_and_resize(p, load)
+            assert (h, w) == ref.shape[:2]
+            if load == 180:
+                assert got[0][i, :h, :w].tobytes() == ref.tobytes()
+            else:
+                assert np.abs(got[0][i, :h, :w].astype(int)
+                              - ref.astype(int)).mean() < 2.0
+        out, offs, fails = tnative.load_clips(clips, load, 128, seeds)
+        jout, joffs, _ = jnative.load_clips(clips, load, 128, seeds)
+        assert fails == 0
+        np.testing.assert_array_equal(out, jout)
+        np.testing.assert_array_equal(offs, joffs)
+        if load == 180:
+            for i, clip in enumerate(clips):
+                y, x = offs[i, :2]
+                ref = np.concatenate([tdecode.decode_image(p) for p in clip],
+                                     axis=-1)[y:y + 128, x:x + 128]
+                assert out[i].tobytes() == ref.tobytes()
+    assert tnative.image_size(paths[0]) == jnative.image_size(paths[0])
+
+
+NATIVE_SAMPLERS = {"center": dict(loadSize=140), "logo": dict(loadSize=130),
+                   "video": dict(predLen=2, loadSize=150),
+                   "wholeim": dict(loadSize=150)}
+
+
+@pytest.mark.parametrize("regime", list(NATIVE_SAMPLERS))
+def test_native_samplers_match_the_jax_native_samplers(corpora, monkeypatch,
+                                                       toolchain, regime):
+    """With the native decode on in both packages, the port's sampler takes
+    its native path (counted) and gives the JAX sampler's batches."""
+    monkeypatch.delenv("VF_NO_NATIVE", raising=False)
+    root, masked, gt = corpora
+    kw = dict(batchSize=3, maskName=str(root / "mask.png"),
+              DATA_ROOT=str(root / "corpus"), **NATIVE_SAMPLERS[regime])
+    if regime == "logo":
+        kw.update(DATA_ROOT=masked, DATA_ROOT_GT=gt)
+    if regime == "center":
+        kw.update(DATA_ROOT=gt)
+    calls = []
+    for fn in ("load_clips", "load_frames"):
+        real = getattr(tnative, fn)
+        monkeypatch.setattr(tpipe.native, fn,
+                            lambda *a, _f=real, **k: calls.append(1)
+                            or _f(*a, **k))
+    ours, _ = tpipe.make_sampler(Opt(device="cpu", **kw), regime)
+    ref, _ = jpipe.make_sampler(JaxOpt(**kw), regime)
+    ra, rb = np.random.RandomState(8), np.random.RandomState(8)
+    a, b = ours(ra), ref(rb)
+    assert calls and a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_native_builds_under_build_and_records_a_failure(tmp_path,
+                                                         monkeypatch,
+                                                         toolchain):
+    """The port's library is its own, under build/video_filler_tpu_torch/
+    (never native/libvf_native.so); a failed build leaves the reason."""
+    so = tnative.library_path()
+    assert os.path.dirname(so) == BUILD_DIR and os.path.isfile(so)
+    assert tnative._lib._name == so
+    assert os.path.basename(so).startswith("libvf_native-")
+    bad = tmp_path / "bad.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(tnative, "SOURCE", str(bad))
+    monkeypatch.setattr(tnative, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_error", None)
+    assert not tnative.available()
+    assert "g++ failed" in tnative.unavailable_reason()
+    with pytest.raises(RuntimeError, match="vf_native is unavailable"):
+        tnative.image_size(str(bad))
+    assert not os.listdir(tmp_path / "build")

@@ -75,8 +75,13 @@ for name in names:
     importlib.import_module(name)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "video_filler_tpu")]
 assert not loaded, loaded
-print(len(names))
+print(" ".join(names))
 """
+
+# Modules the walk must reach: the copies of the JAX package's host
+# modules that import no JAX (t7, dashboard, native) and the port's own.
+NEW_MODULES = ["checkpoint.t7", "utils.dashboard", "data.native",
+               "data.device_data", "eval.export"]
 
 
 def test_every_port_module_imports_with_the_jax_package_refused():
@@ -85,7 +90,10 @@ def test_every_port_module_imports_with_the_jax_package_refused():
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 30   # every module was reached
+    names = proc.stdout.split()
+    assert len(names) >= 45                      # every module was reached
+    for mod in NEW_MODULES:
+        assert f"video_filler_tpu_torch.{mod}" in names, mod
 
 
 # --- the option table ------------------------------------------------------

@@ -248,15 +248,15 @@ class Opt:
                                      # input size = 4*2**levels (128 at 5)
     useBias: bool = False            # reference zeroes conv biases every step
     prefetchDepth: int = 2
-    dataDevice: bool = False         # HBM-resident corpus: decode the whole
+    dataDevice: bool = False         # device-resident corpus: decode the
                                      # train split once, synthesize batches
-                                     # INSIDE the fused step from the step
-                                     # seed (data/device_data.py) — per-step
-                                     # host→device traffic becomes one int32;
+                                     # on the device from the step seed
+                                     # (data/device_data.py) — per-step
+                                     # host→device traffic becomes a seed;
                                      # batch stream = f(seed, step), so
                                      # resume replays the exact stream
-    profileSteps: int = 0            # >0: capture a jax.profiler trace over
-                                     # steps [5, 5+profileSteps) of epoch 1
+    profileSteps: int = 0            # >0: capture a torch.profiler trace
+                                     # over steps [5, 5+profileSteps)
     profileDir: str = "logs/profile"
     device: str = "cuda"             # torch device the step runs on
                                      # ("cuda", "cpu")

@@ -1,7 +1,9 @@
 """Host data pipeline: per-regime batch samplers and the threaded prefetch
 pump, copied from video_filler_tpu/data/pipeline.py (the port imports
-nothing of the JAX package).  Python decode path only; the native C++ decode
-comes later (ROADMAP A.1).
+nothing of the JAX package).  Decode runs on the native C++ pool
+(data/native.py) where it builds, as in the JAX package; the Python decode
+(data/decode.py) is the reference and the per-image fallback, and the only
+path with ``VF_NO_NATIVE=1``.
 
 Samplers return uint8 numpy batches; flip, normalisation and mask synthesis
 run on the device (train/step.py ``make_preprocess``).  Each reproduces a
@@ -16,6 +18,7 @@ donkey of the reference:
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Callable
@@ -23,7 +26,7 @@ from typing import Callable
 import numpy as np
 
 from video_filler_tpu_torch.config import Opt
-from video_filler_tpu_torch.data import decode
+from video_filler_tpu_torch.data import decode, native
 from video_filler_tpu_torch.data.index import (
     FolderIndex,
     PairedIndex,
@@ -32,6 +35,13 @@ from video_filler_tpu_torch.data.index import (
 from video_filler_tpu_torch.ops.masks import binarize_mask
 
 Batch = dict[str, np.ndarray]
+
+
+def _use_native(opt: Opt) -> bool:
+    """Native C++ decode path: RGB only, fixed-size crops, loadSize >= 0
+    (the random-scale modes stay in Python)."""
+    return (opt.nc == 3 and opt.loadSize >= 0 and native.available()
+            and os.environ.get("VF_NO_NATIVE") != "1")
 
 
 def _random_crop_hw(rs, h, w, ch, cw):
@@ -46,9 +56,12 @@ def _random_crop_hw(rs, h, w, ch, cw):
 def center_sampler(opt: Opt, index: FolderIndex,
                    split: str = "train") -> Callable:
     """Random image → short-side resize → random fineSize crop; uint8 out
-    (data/donkey_folder.lua:70-88).  `split` selects the folder dataset's
-    train/test portion."""
+    (data/donkey_folder.lua:70-88).  Uses the native C++ parallel decode
+    path (data/native.py) when available, falling back per image to Python
+    for files the native decoder rejects.  `split` selects the folder
+    dataset's train/test portion."""
     fs = opt.fineSize
+    use_native = _use_native(opt)
 
     def _python_one(rs, p):
         img = decode.load_and_resize(p, opt.loadSize, opt.nc, rs)
@@ -61,6 +74,15 @@ def center_sampler(opt: Opt, index: FolderIndex,
 
     def sample(rs: np.random.RandomState) -> Batch:
         paths = index.sample(rs, opt.batchSize, split=split)
+        if use_native:
+            seeds = rs.randint(1, 2**63, size=opt.batchSize, dtype=np.uint64)
+            out, offs, fails = native.load_clips([[p] for p in paths],
+                                                 opt.loadSize, fs, seeds)
+            if fails:
+                for i, p in enumerate(paths):
+                    if offs[i, 2] == 0:  # per-clip failure flag
+                        out[i] = _python_one(rs, p)
+            return {"raw": out}
         out = np.empty((opt.batchSize, fs, fs, opt.nc), np.uint8)
         for i, p in enumerate(paths):
             out[i] = _python_one(rs, p)
@@ -73,17 +95,40 @@ def logo_sampler(opt: Opt, paired: PairedIndex,
                  split: str = "train") -> Callable:
     """Masked/gt pairs with the SAME crop applied to both
     (data/donkey_folder_logo.lua:72-99; the flip happens on the device, also
-    shared).  ``split`` selects the train head / held-out tail of the pair
-    list (PairedIndex.split)."""
+    shared).  Decode + resize of the 2B images per batch runs on the native
+    pool when available; the per-image Python fallback keeps the error
+    semantics (a pair size mismatch still raises) either way.  ``split``
+    selects the train head / held-out tail of the pair list
+    (PairedIndex.split)."""
     fs = opt.fineSize
+    use_native = _use_native(opt) and opt.loadSize > 0
+    max_hw = opt.loadSize * 2
+    slots = threading.local()  # per-worker slot buffer, reused across batches
 
     def sample(rs: np.random.RandomState) -> Batch:
         masked = np.empty((opt.batchSize, fs, fs, opt.nc), np.uint8)
         gt = np.empty_like(masked)
         pairs = paired.sample(rs, opt.batchSize, split=split)
+        buf = hw = None
+        if use_native:
+            if getattr(slots, "buf", None) is None:
+                slots.buf = np.empty((2 * opt.batchSize, max_hw, max_hw, 3),
+                                     np.uint8)
+            flat = [p for pair in pairs for p in pair]  # masked, gt, ...
+            buf, hw, _fails = native.load_frames(flat, opt.loadSize,
+                                                 max_hw, max_hw,
+                                                 out=slots.buf)
         for i, (pm, pg) in enumerate(pairs):
-            im = decode.load_and_resize(pm, opt.loadSize, opt.nc)
-            ig = decode.load_and_resize(pg, opt.loadSize, opt.nc)
+            # A pair decodes with ONE decoder: if either image fell back
+            # (a decode error in the native pool), redo BOTH in Python so
+            # the size-equality check below compares like with like -- the
+            # two paths share the half-up size rule but not the resampler.
+            if buf is not None and hw[2 * i, 0] != 0 and hw[2 * i + 1, 0] != 0:
+                im = buf[2 * i, :hw[2 * i, 0], :hw[2 * i, 1]]
+                ig = buf[2 * i + 1, :hw[2 * i + 1, 0], :hw[2 * i + 1, 1]]
+            else:
+                im = decode.load_and_resize(pm, opt.loadSize, opt.nc)
+                ig = decode.load_and_resize(pg, opt.loadSize, opt.nc)
             if im.shape != ig.shape:
                 raise ValueError(
                     f"paired images differ in size: {pm} vs {pg} "
@@ -135,12 +180,56 @@ def video_sampler(opt: Opt, corpus: VideoCorpus,
     The random-block fallback for empty mask crops runs on the device.
     ``split`` draws clips from the corpus's train head / held-out tail."""
     fs, pl, nc = opt.fineSize, opt.predLen, opt.nc
+    use_native = _use_native(opt)
+    fallback_warned = [False]  # one notice per sampler, not per clip
     mask_cache: dict[tuple[int, int], np.ndarray] = {}
 
     def _mask_crop(h, w, y, x):
         if mask is None:
             return np.zeros((fs, fs, 1), np.uint8)
         return _cached_mask_at(mask, mask_cache, h, w)[y:y + fs, x:x + fs]
+
+    def sample_native(rs: np.random.RandomState) -> Batch:
+        """Batch decode via C++ (a shared crop per clip and its reported
+        offsets for the mask); dark clips are rejected and redrawn in later
+        rounds."""
+        b = opt.batchSize
+        raw = np.empty((b, fs, fs, nc * pl), np.uint8)
+        msk = np.empty((b, fs, fs, 1), np.uint8)
+        pending = list(range(b))
+        while pending:
+            clips = [corpus.sample_clip(rs, pl, split) for _ in pending]
+            seeds = rs.randint(1, 2**63, size=len(pending), dtype=np.uint64)
+            out, offs, _fails = native.load_clips(clips, opt.loadSize, fs,
+                                                  seeds)
+            still = []
+            for j, i in enumerate(pending):
+                if offs[j, 2] == 0:  # per-clip failure flag (decode error,
+                    # short side < crop, or mismatched frame sizes -- the
+                    # native side zeroes rh for every failure mode).  Python-
+                    # decode THIS clip: it upscales undersized frames and
+                    # raises naming the file on corrupt data, so native
+                    # availability changes neither which configs work nor
+                    # which files are skipped.
+                    if not fallback_warned[0]:
+                        fallback_warned[0] = True
+                        print("vf_native: clip rejected (undersized/"
+                              f"mismatched/corrupt: {clips[j][0]} ...); "
+                              "falling back to Python decode for such clips")
+                    r = _python_clip(rs, clips[j])
+                    if r is None:
+                        still.append(i)  # dark crop: redraw like any other
+                    else:
+                        raw[i], msk[i] = r
+                    continue
+                if out[j].mean() < 0.1 * 255 and rs.rand() <= 0.95:
+                    still.append(i)  # dark-crop rejection: redraw
+                    continue
+                raw[i] = out[j]
+                y, x, rh, rw = offs[j]
+                msk[i] = _mask_crop(rh, rw, y, x)
+            pending = still
+        return {"raw": raw, "mask": msk}
 
     def _python_clip(rs, paths):
         """Decode + crop one clip.  Returns (crop, mask_crop), or None when
@@ -167,6 +256,8 @@ def video_sampler(opt: Opt, corpus: VideoCorpus,
                 return r
 
     def sample(rs: np.random.RandomState) -> Batch:
+        if use_native:
+            return sample_native(rs)
         raw = np.empty((opt.batchSize, fs, fs, nc * pl), np.uint8)
         msk = np.empty((opt.batchSize, fs, fs, 1), np.uint8)
         for i in range(opt.batchSize):
@@ -181,12 +272,19 @@ def wholeim_sampler(opt: Opt, corpus: VideoCorpus,
     """Patch-array regime (datavid/donkey_wholeim.lua:141-216): mask-fill
     the frame, random translate-crop (<= 100x70 px, zero re-padded), hflip
     p=0.4, slice arrh x arrw overlapping fineSize patches into channels;
-    targets = top-left 2x2 patches + their mask."""
+    targets = top-left 2x2 patches + their mask.  The full-frame decode and
+    resize run on the native pool when available; frames it rejects fall
+    back to Python decode one by one, with the same error semantics."""
     fs = opt.fineSize
     arrh, arrw = opt.array_h, opt.array_w
     outh, outw = opt.out_h, opt.out_w
     nc = opt.nc
     fill = int(round(opt.maskValue * 255.0))
+    # loadSize>0 bounds the resized frame: short side == loadSize, long side
+    # capped at 2x (beyond -> per-frame Python fallback, no slot limit there).
+    use_native = _use_native(opt) and opt.loadSize > 0
+    max_hw = opt.loadSize * 2
+    slots = threading.local()  # per-worker slot buffer, reused across batches
     mask_cache: dict[tuple[int, int], np.ndarray] = {}
 
     def _transform(rs, img):
@@ -252,8 +350,32 @@ def wholeim_sampler(opt: Opt, corpus: VideoCorpus,
         masked = np.empty((b, fs, fs, nc * arrh * arrw), np.uint8)
         real = np.empty((b, fs, fs, nc * outh * outw), np.uint8)
         msk = np.empty((b, fs, fs, nc * outh * outw), np.uint8)
-        for i in range(b):
-            masked[i], real[i], msk[i] = sample_one(rs)
+        if not use_native:
+            for i in range(b):
+                masked[i], real[i], msk[i] = sample_one(rs)
+            return {"raw_masked": masked, "raw_real": real, "mask": msk}
+        if getattr(slots, "buf", None) is None:
+            slots.buf = np.empty((b, max_hw, max_hw, 3), np.uint8)
+        pending = list(range(b))
+        while pending:
+            paths = [corpus.sample_clip(rs, 1, split)[0] for _ in pending]
+            buf, hw, _fails = native.load_frames(paths, opt.loadSize,
+                                                 max_hw, max_hw,
+                                                 out=slots.buf)
+            still = []
+            for j, i in enumerate(pending):
+                if hw[j, 0] == 0:  # native rejection: Python-decode THIS
+                    # frame (a descriptive error on corrupt data)
+                    img = decode.load_and_resize(paths[j], opt.loadSize,
+                                                 nc, rs)
+                else:
+                    img = buf[j, :hw[j, 0], :hw[j, 1]]
+                r = _transform(rs, img)
+                if r is None:
+                    still.append(i)  # dark: redraw like the Python path
+                    continue
+                masked[i], real[i], msk[i] = r
+            pending = still
         return {"raw_masked": masked, "raw_real": real, "mask": msk}
 
     return sample

@@ -652,7 +652,7 @@ def main(argv: list[str]) -> None:
     regime, rest = split_regime(argv, default="video")
     opt = from_args(rest)
     if not opt.net:
-        raise SystemExit("serve needs net=<checkpoint .npz>")
+        raise SystemExit("serve needs net=<checkpoint .npz or .t7>")
     srv = InpaintServer(opt, regime, opt.net, host=opt.serveHost,
                         port=opt.display_port,
                         max_delay_ms=opt.serveMaxDelayMs,

@@ -4,9 +4,18 @@ video_filler_tpu/train/loop.py).
 Single process, one device.  Each step: a uint8 batch from the threaded
 host pipeline is copied to the device, preprocessed there with decisions
 drawn from a per-step ``torch.Generator`` (seeded by the JAX loop's per-step
-formula), and run through the train step.  Metrics go to stdout and JSONL in
-the reference format (utils/logger.py of the JAX package), one step late so
-that reading them does not stall the device; display grids go to PNGs.
+formula), and run through the train step.  Metrics go to stdout and JSONL
+in the reference format (utils/logger.py of the JAX package), one step late
+so that reading them does not stall the device; display grids go to PNGs.
+
+With ``dataDevice=1`` the train split is resident on the device instead
+(data/device_data.py) and each step's batch is synthesised there from a
+generator on the device seeded by ``data_seed`` -- a stream apart from the
+preprocess decisions', as the JAX loop splits ``kd`` from ``k1`` -- so the
+batch is a pure function of (seed, global step) on a given device type, and
+an ``autoResume``'d run replays the uninterrupted run's batches.  CPU and
+CUDA generators give different streams, as threefry and Philox do across
+the packages.
 
 Checkpoints are the JAX package's files (checkpoint/ckpt.py): saved every
 ``checkpointEvery`` epochs (pruned to ``keepCheckpoints`` before each save,
@@ -25,8 +34,14 @@ CLI (env-var names match the reference; see config.py):
 eval CLIs and the server read like any checkpoint, and whose meta carries
 the best value across ``autoResume``.
 
+``displayServer=1`` serves the run's JSONL metrics and display PNGs over
+HTTP on ``display_port`` (utils/dashboard.py) while it trains.
+``profileSteps=N`` records a ``torch.profiler`` trace (CPU, and CUDA on
+the card) of steps [5, 5+N) of the run into one Chrome trace under
+``profileDir``; a run that ends inside the window stops it at its end.
+
 Options the port does not run yet exit with the ROADMAP item that brings
-them (``unsupported_options``).
+them (``unsupported_options``): only the multi-device ones remain.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ from video_filler_tpu_torch.config import (
     resolve_device,
     split_regime,
 )
+from video_filler_tpu_torch.data import device_data
 from video_filler_tpu_torch.data.pipeline import DataLoader, make_sampler
 from video_filler_tpu_torch.eval.common import live_generator
 from video_filler_tpu_torch.eval.metrics import evaluate
@@ -73,7 +89,11 @@ from video_filler_tpu_torch.train.step import (
     make_preprocess,
     make_train_step,
 )
-from video_filler_tpu_torch.utils import MetricsLogger, save_image_grid
+from video_filler_tpu_torch.utils import (
+    Dashboard,
+    MetricsLogger,
+    save_image_grid,
+)
 
 # The metrics eval/metrics.evaluate reports that keepBest can monitor;
 # PSNR and SSIM improve upwards, the L2s downwards.
@@ -91,15 +111,25 @@ def unsupported_options(opt: Opt, regime: str) -> list[str]:
         check_condition_adv(opt, regime)   # center only
     except (NotImplementedError, ValueError) as e:
         out.append(str(e))
-    checks = (
-        (opt.dataDevice, "dataDevice (ROADMAP A.10)"),
-        (opt.seqParallel > 1 or opt.modelParallel > 1 or opt.dataParallel > 1,
-         "seqParallel/modelParallel/dataParallel>1 (ROADMAP A.14)"),
-        (opt.displayServer, "displayServer (ROADMAP A.9)"),
-        (opt.profileSteps > 0, "profileSteps (ROADMAP A.9)"),
-    )
-    out += [f"{what} is not ported yet" for bad, what in checks if bad]
+    if opt.seqParallel > 1 or opt.modelParallel > 1 or opt.dataParallel > 1:
+        out.append("seqParallel/modelParallel/dataParallel>1 (ROADMAP A.14) "
+                   "is not ported yet")
     return out
+
+
+def check_data_device(opt: Opt, regime: str) -> None:
+    """dataDevice preflight, before any resource exists, with the JAX
+    package's words (video_filler_tpu/train/loop.py:162-176 and
+    data/device_data.py:72-82): batches are synthesised on the device, so
+    whatever consumes the HOST batch stream is refused, and so is a
+    random-scale loadSize."""
+    device_data.check_regime(opt, regime)
+    if opt.seqParallel > 1:
+        raise SystemExit("dataDevice does not support seqParallel")
+    if opt.display:
+        raise SystemExit(
+            "dataDevice=1 is incompatible with display=1 (the preview "
+            "grid pulls an extra HOST batch) — set display=0")
 
 
 def check_eval_options(opt: Opt, regime: str) -> None:
@@ -135,6 +165,55 @@ def step_seed(seed: int, global_step: int) -> int:
     run's seed and the global step, so a resumed run continues the
     uninterrupted run's sequence (the JAX loop's formula, loop.py:582)."""
     return (seed * 1_000_003 + global_step) % 2**31
+
+
+def data_seed(seed: int, global_step: int) -> int:
+    """dataDevice's per-step batch seed: ``step_seed`` moved above 2**31,
+    so the batch stream never shares a seed with the preprocess decisions
+    (the JAX loop's separate ``kd`` key, loop.py:365-377)."""
+    return step_seed(seed, global_step) + 2**31
+
+
+class _StepProfiler:
+    """profileSteps: a ``torch.profiler`` trace over steps [5, 5+N) of the
+    run (the JAX loop's window, loop.py:569-577), started and stopped on
+    the loop's thread.  CPU activity always, CUDA when the step runs on the
+    card; one Chrome trace under ``profileDir``."""
+
+    def __init__(self, opt: Opt, device: torch.device):
+        self.opt, self.device = opt, device
+        self.prof = None
+        self.first = 0          # the global step the trace starts at
+        self.done = opt.profileSteps <= 0
+
+    def at_step(self, done: int, global_step: int) -> None:
+        """Called at the top of each step with the steps done so far."""
+        if self.done:
+            return
+        if self.prof is None and done == 5:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.first = global_step
+            self.prof = profile(activities=acts)
+            self.prof.start()
+        elif self.prof is not None and done == 5 + self.opt.profileSteps:
+            self.stop()
+
+    def stop(self) -> None:
+        """Stop a running trace and write it (a no-op otherwise)."""
+        if self.prof is None or self.done:
+            return
+        self.done = True
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.opt.profileDir, exist_ok=True)
+        path = os.path.join(self.opt.profileDir,
+                            f"{self.opt.name}_step{self.first}.pt.trace.json")
+        self.prof.export_chrome_trace(path)
+        print(f"profiler trace: {path}")
 
 
 def generator_input(opt: Opt, regime: str, batch) -> torch.Tensor:
@@ -173,6 +252,8 @@ def train(opt: Opt, regime: str):
     if regime not in REGIMES:
         raise SystemExit(f"unknown regime {regime!r}; expected one of "
                          f"{', '.join(REGIMES)}")
+    if opt.dataDevice:
+        check_data_device(opt, regime)
     bad = unsupported_options(opt, regime)
     if bad:
         raise SystemExit("; ".join(bad))
@@ -236,8 +317,23 @@ def train(opt: Opt, regime: str):
     # loader, whose stream cannot be fast-forwarded, draws a fresh one
     # rather than replaying the run's first batches (JAX loop.py:283-338).
     step0 = state.step
-    loader = DataLoader(sampler, opt.nThreads, seed=seed + 104729 * step0,
-                        prefetch_depth=opt.prefetchDepth)
+    dev_sampler = None
+    if opt.dataDevice:
+        # The corpus goes to the device once, as uint8; nothing per step
+        # crosses from the host but the generator's seed.
+        arrays, dd_meta = device_data.load_corpus(opt, regime)
+        corpus = device_data.to_device(arrays, device)
+        dev_sampler = device_data.DeviceSampler(opt, regime, dd_meta, device)
+        data_gen = torch.Generator(device=device)
+        print(f"dataDevice: {dd_meta['desc']} resident on device "
+              f"({sum(a.nbytes for a in arrays) / 1e6:.0f} MB); per-step "
+              f"host transfer: one seed")
+        del arrays
+        loader = device_data.NullLoader()
+    else:
+        loader = DataLoader(sampler, opt.nThreads,
+                            seed=seed + 104729 * step0,
+                            prefetch_depth=opt.prefetchDepth)
     logger = MetricsLogger(opt.name)
     ntrain = min(ds_size, opt.ntrain)
     steps_per_epoch = max(int(ntrain // opt.batchSize), 1)
@@ -288,6 +384,14 @@ def train(opt: Opt, regime: str):
                     f"haltOnNonFinite=0 to push through)")
         logger.log_step(epoch_, step_, total, host, t_step, t_data)
 
+    dashboard = None
+    if opt.displayServer:
+        # Live HTTP view over the JSONL and PNG dumps (the reference's
+        # `display` server, train.lua:427-445).
+        dashboard = Dashboard(opt.name, port=opt.display_port)
+        print(f"dashboard: http://localhost:{dashboard.port}/")
+    profiler = _StepProfiler(opt, device)
+
     # SIGTERM (preemption): finish the step in flight, checkpoint, exit
     # cleanly.  The handler only sets a flag; the work happens at the next
     # step boundary on the main thread.
@@ -301,12 +405,19 @@ def train(opt: Opt, regime: str):
         for epoch in range(start_epoch, opt.niter + 1):
             t_epoch = time.perf_counter()
             for step in range(steps_per_epoch):
+                profiler.at_step(done, step0 + done)
                 t0 = time.perf_counter()
-                host_batch = loader.get_batch()
-                t_data = time.perf_counter() - t0
+                if dev_sampler is None:
+                    host_batch = loader.get_batch()
+                    t_data = time.perf_counter() - t0
+                    batch = to_device(host_batch)
+                else:
+                    batch = dev_sampler(corpus, data_gen.manual_seed(
+                        data_seed(seed, step0 + done)))
+                    t_data = time.perf_counter() - t0
                 gen = torch.Generator().manual_seed(
                     step_seed(seed, step0 + done))
-                batch = preprocess(to_device(host_batch), gen)
+                batch = preprocess(batch, gen)
                 # a noiseGen step draws its z from the step's generator
                 metrics = step_fn(state, batch, init_net,
                                   **({"gen": gen} if opt.noiseGen else {}))
@@ -365,8 +476,11 @@ def train(opt: Opt, regime: str):
         # of an exception already on its way out of the loop.
         propagating = sys.exc_info()[0] is not None
         deferred = None
-        for cleanup in (flush_log, loader.close, logger.close,
-                        wait_pending_saves):
+        cleanups = [flush_log, profiler.stop, loader.close, logger.close,
+                    wait_pending_saves]
+        if dashboard is not None:
+            cleanups.insert(3, dashboard.close)
+        for cleanup in cleanups:
             try:
                 cleanup()
             except Exception as e:  # noqa: BLE001 -- re-raised below
