@@ -111,8 +111,36 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  the .npz-loaded G's output (rtol 1e-3, atol 1e-3), and a
                  server on the .t7 answers a request within one uint8 level
                  of a server on the .npz.
+  8. parallel -- the multi-device paths (parallel/), each world started by
+                 ``run_world`` with a time limit.  (a) NCCL, the production
+                 backend, at world size 1 with torchrun's environment: a
+                 tiny f32 center step through the mesh code equals the
+                 plain step on the card (metrics rtol 1e-5); then through
+                 ``train.loop.main`` at full width, bf16: center for 3
+                 steps with a checkpoint, restored and resumed for 3 more,
+                 and video3d for 2.  (b) two ranks sharing the card (gloo,
+                 both on cuda:0: NCCL refuses two ranks on one device): at
+                 tiny width, f32, DP-2 center, TP-2 center (modelParallel
+                 2), TP-2 center noiseGen and SP-2 video3d, each against
+                 the one-process step on the card at the CPU suite's
+                 tolerances (metrics rtol 1e-4 / atol 1e-5, parameters
+                 atol 4.1e-3, BN statistics rtol 1e-4 / atol 1e-5), the
+                 replicas bitwise equal; dataDevice DP-2 center through
+                 the loop against one process; then at full width, bf16,
+                 2 steps each of DP-2 center, TP-2 center and SP-2 video3d
+                 through ``train.loop.main``: metrics finite, loss-kernel
+                 launches per rank steps x gradAccum, all on the row path,
+                 ms/step (two ranks sharing one card: not a multi-GPU
+                 speed), and the count of gloo calls staged through pinned
+                 host buffers.  (c) ``dataParallel=2`` serving on one card
+                 exits naming the card count; the video, video3d and center
+                 noiseGen generators of phase 5 exported with torch.export
+                 at batch 64 (eval/export_pt2.py), reloaded, equal to the
+                 eager G and within one uint8 level of the server
+                 function; exported and eager ms per batch.
 Then one JSON line of the kernels' numbers (at the video geometry, and by
-geometry under "geometries"), and as the last line
+geometry under "geometries"; launches per rank of phase 8's runs under
+"launches_parallel"), and as the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -121,6 +149,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -307,6 +336,13 @@ def kernel_operands(torch, losses, masks):
         ("video3d bf16", fake3, clip3, w3),
         ("video3d composite f32", masks.fill_in(clip3, mask3, fake3), clip3,
          w3),
+        # one rank's share under phase 8's two-rank meshes: center and
+        # video at DP-2 (half the rows), video3d at SP-2 (half the frames;
+        # the mask over T stays whole)
+        ("center DP-2 bf16", pred_c[:32].bfloat16(), target[:32], ring),
+        ("video DP-2 bf16", fake[:32], clip[:32], w_vid[:32]),
+        ("video3d SP-2 bf16", fake3[:, :2].contiguous(),
+         clip3[:, :2].contiguous(), w3),
     ]
 
 
@@ -1560,6 +1596,454 @@ def noise_inference(torch, np, metrics, load_generator, InpaintServer, opt,
         srv.close()
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the multi-device paths.  The rank functions below run in the
+# processes of a run_world world (parallel/launch.py), which loads this
+# script under another name than __main__; the parent orchestrates.
+# ---------------------------------------------------------------------------
+
+PAR_TINY = dict(nef=8, ngf=8, ndf=8, wtl2=0.999, computeDtype="float32")
+PAR_TOL = dict(metric_rtol=1e-4, metric_atol=1e-5, param_atol=4.1e-3,
+               bn_rtol=1e-4, bn_atol=1e-5)
+PAR_WORLD_S = 300.0   # a world's wall-clock limit: a hung collective fails
+
+
+def _rank_setup():
+    """A rank's process: the repository importable, TF32 off as phase 1
+    sets it."""
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def _reset_counts():
+    from video_filler_tpu_torch.ops.cuda import fused_loss as fl
+    for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _counts():
+    from video_filler_tpu_torch.ops.cuda import fused_loss as fl
+    return {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
+
+
+def _numpy_sd(module):
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in module.state_dict().items()}
+
+
+def par_tiny_step(spec, mesh_kind=None, device="cuda"):
+    """One tiny f32 train step on ``device``: on this rank's mesh (rows
+    and, on a seq mesh, frames of the global batch) when ``mesh_kind`` is
+    set, else the one-process step.  Returns the metrics and the full
+    (gathered) G and D state dicts."""
+    torch = _rank_setup()
+    from video_filler_tpu_torch.config import Opt
+    from video_filler_tpu_torch.parallel import mesh as mesh_mod
+    from video_filler_tpu_torch.parallel import temporal
+    from video_filler_tpu_torch.parallel.distributed import data_rows
+    from video_filler_tpu_torch.train import step as step_mod
+    opt = Opt(device=device, **spec["opt"])
+    regime = spec["regime"]
+    mesh = None
+    if mesh_kind == "seq":
+        mesh = temporal.make_seq_mesh(spec["n_data"], spec["n_shard"])
+    elif mesh_kind == "model":
+        mesh = mesh_mod.make_mesh(spec["n_data"], spec["n_shard"])
+    state = step_mod.init_train_state(opt, regime,
+                                      torch.Generator().manual_seed(0), mesh)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in spec["batch"].items()}
+    if mesh is not None:
+        where = mesh_mod.coords(mesh)
+        if where.shard_axis == "seq":
+            batch = temporal.shard_sp_batch(where, batch)
+        else:
+            rows = data_rows(opt.batchSize, where.n_data, where.data_rank)
+            batch = {k: v[rows.to(v.device)] for k, v in batch.items()}
+    kw = {}
+    if spec.get("noise") is not None:
+        kw["noise"] = torch.from_numpy(spec["noise"]).to(device)
+    metrics = step_mod.make_train_step(opt, regime, mesh=mesh)(state, batch,
+                                                              **kw)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    full = (mesh_mod.unsharded(state, mesh) if mesh is not None
+            else contextlib.nullcontext())
+    with full:
+        return {"metrics": metrics, "gen": _numpy_sd(state.gen),
+                "disc": _numpy_sd(state.disc)}
+
+
+def par_loop(args, name, steps, tmp, keep_gen=False):
+    """``loop.main`` from ``tmp`` on this rank with the launch counts set
+    to 0 just before and read just after; this rank's logged steps, its
+    launches, the run's seconds and, with ``keep_gen``, the final G."""
+    torch = _rank_setup()
+    from video_filler_tpu_torch.parallel import comm, distributed
+    from video_filler_tpu_torch.train import loop
+    rank = distributed.process_index()
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        _reset_counts()
+        sync = torch.cuda.synchronize if torch.cuda.is_available() \
+            else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        state = loop.main([*args, f"name={name}"])
+        sync()
+        seconds = time.perf_counter() - t0
+        launches = _counts()
+    finally:
+        os.chdir(cwd)
+    log = f"{name}.jsonl" if rank == 0 else f"{name}_p{rank}.jsonl"
+    with open(os.path.join(tmp, "logs", log)) as f:
+        recs = [json.loads(line) for line in f if '"step"' in line]
+    gen = _numpy_sd(state.gen) if keep_gen else None
+    return {"steps": recs[-steps:], "launches": launches,
+            "seconds": seconds, "step": state.step, "gen": gen,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if torch.cuda.is_available() else 0.0),
+            "staged": dict(comm.HOST_STAGED),
+            "backend": torch.distributed.get_backend()}
+
+
+def par_world1(tmp, center, video3d, specs, device="cuda"):
+    """Phase 8(a), the one rank of an NCCL world: the tiny f32 steps
+    through the mesh code against the plain step in this process, then the
+    full-width runs through ``loop.main``."""
+    torch = _rank_setup()
+    out = {"tiny": []}
+    for spec in specs:
+        out["tiny"].append((par_tiny_step(spec, "model", device),
+                            par_tiny_step(spec, None, device)))
+    out["center"] = par_loop([*center, "ntrain=192", "niter=1",
+                              "checkpointEvery=1"], "par1_center", 3, tmp)
+    out["center_resumed"] = par_loop(
+        [*center, "ntrain=192", "niter=2", "checkpointEvery=5",
+         "autoResume=1"], "par1_center", 3, tmp)
+    out["video3d"] = par_loop([*video3d, "ntrain=128", "niter=1",
+                               "checkpointEvery=5"], "par1_video3d", 2, tmp)
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def par_two_ranks(tmp, specs, dd_args, full_runs, device="cuda"):
+    """Phase 8(b), one of two gloo ranks sharing cuda:0: the tiny f32 steps
+    on their meshes, the tiny dataDevice DP-2 loop, then the full-width
+    runs."""
+    _rank_setup()
+    out = {"tiny": [par_tiny_step(spec, spec["kind"], device)
+                    for spec in specs],
+           "dd": par_loop(dd_args, "par2_dd", 2, tmp, keep_gen=True),
+           "full": {}}
+    for name, args, steps in full_runs:
+        out["full"][name] = par_loop(args, name, steps, tmp)
+        gc.collect()
+    return out
+
+
+def _close_trees(label, got, ref, atol, rtol=0.0):
+    import numpy as np
+    worst = 0.0
+    for k, r in ref.items():
+        err = np.abs(got[k] - r)
+        if bool((err > atol + rtol * np.abs(r)).any()):
+            fail(f"{label}: {k} differs by {float(err.max()):.3e} (atol "
+                 f"{atol}, rtol {rtol})")
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+    return worst
+
+
+def _check_tiny(label, got, ref):
+    """A sharded tiny step against the one-process step: metrics, post-Adam
+    parameters, BN running statistics at the CPU suite's tolerances."""
+    import math as m
+    for k, v in ref["metrics"].items():
+        if not m.isclose(got["metrics"][k], v, rel_tol=PAR_TOL["metric_rtol"],
+                         abs_tol=PAR_TOL["metric_atol"]):
+            fail(f"{label}: metric {k} {got['metrics'][k]} vs {v}")
+    params, stats = 0.0, 0.0
+    for net in ("gen", "disc"):
+        bn = {k for k in ref[net] if "running_" in k}
+        params = max(params, _close_trees(
+            label, {k: got[net][k] for k in ref[net] if k not in bn},
+            {k: ref[net][k] for k in ref[net] if k not in bn},
+            PAR_TOL["param_atol"]))
+        stats = max(stats, _close_trees(
+            label, {k: got[net][k] for k in bn}, {k: ref[net][k] for k in bn},
+            PAR_TOL["bn_atol"], PAR_TOL["bn_rtol"]))
+    return params, stats
+
+
+def _same_replicas(label, outs):
+    import numpy as np
+    for net in ("gen", "disc"):
+        for k, v in outs[0][net].items():
+            if any(not np.array_equal(v, o[net][k]) for o in outs[1:]):
+                fail(f"{label}: the replicas differ in {net} {k}")
+
+
+def _check_run(label, res, steps, grad_accum=1):
+    """A full-width run on one rank: every metric finite, each loss kernel
+    launched steps x gradAccum times per direction, all on the row path."""
+    from video_filler_tpu_torch.train.step import METRIC_KEYS
+    if len(res["steps"]) < steps:
+        fail(f"{label}: logged {len(res['steps'])} steps, expected {steps}")
+    for r in res["steps"]:
+        bad = [k for k in METRIC_KEYS if not math.isfinite(r[k])]
+        if bad:
+            fail(f"{label}: non-finite metrics {bad}")
+    n = res["launches"]
+    per_dir = steps * grad_accum
+    if n["fwd"] != per_dir or n["bwd"] != per_dir or n["generic"] \
+            or n["row"] != 2 * per_dir:
+        fail(f"{label}: loss kernels launched {n} in {steps} steps of "
+             f"{grad_accum} microbatches: expected {per_dir} per direction, "
+             "all on the row path")
+
+
+def par_specs(np):
+    """The tiny f32 cases of phase 8: (name, spec) with the global batch
+    made from a seed."""
+    rs = np.random.RandomState(8)
+    center = {"real": rs.uniform(-1, 1, (8, 128, 128, 3)).astype(np.float32)}
+    c = dict(PAR_TINY, nBottleneck=16, batchSize=8, overlapPred=4)
+    v3 = dict(PAR_TINY, nBottleneck=64, predLen=4, batchSize=4,
+              weight_nomask=0.05, video3dLevels=3, fineSize=32)
+    mask3 = np.zeros((4, 1, 32, 32, 1), np.float32)
+    mask3[:, :, 8:20, 8:20] = 1.0
+    clip = {"real": rs.uniform(-1, 1, (4, 4, 32, 32, 3)).astype(np.float32),
+            "mask": mask3}
+    noise = rs.normal(size=(8, 1, 1, 5)).astype(np.float32)
+    return [
+        ("DP-2 center", dict(opt=c, regime="center", kind="model", n_data=2,
+                             n_shard=1, batch=center)),
+        ("TP-2 center", dict(opt=c, regime="center", kind="model", n_data=1,
+                             n_shard=2, batch=center)),
+        ("TP-2 center noiseGen", dict(opt=dict(c, noiseGen=True, nz=5),
+                                      regime="center", kind="model",
+                                      n_data=1, n_shard=2, batch=center,
+                                      noise=noise)),
+        ("SP-2 video3d", dict(opt=v3, regime="video3d", kind="seq",
+                              n_data=1, n_shard=2, batch=clip)),
+    ]
+
+
+def par_checkpoints(torch, Opt, from_args, split_regime, step_mod, run,
+                    tmp):
+    """The checkpoints phase 8(c) exports: phase 5's video, video3d and
+    center noiseGen ones."""
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    nets = {"video": (run["video"], j("checkpoints", "video_2_state.npz")),
+            "video3d": (run["video3d"],
+                        j("checkpoints", "video3d_1_state.npz")),
+            "center noiseGen": (run["options"]["center_noiseGen"][1],
+                                j("checkpoints",
+                                  "center_noiseGen_1_state.npz"))}
+    for label, (_, path) in nets.items():
+        if not os.path.exists(path):
+            fail(f"phase 8: phase 5 wrote no {label} checkpoint {path}")
+    return {label: (split_regime(args)[0], from_args(split_regime(args)[1]),
+                    path) for label, (args, path) in nets.items()}
+
+
+def export_checks(torch, np, nets, smi):
+    """Phase 8(c): each generator exported at batch 64 on the card, the
+    .pt2 reloaded, its uint8 output against the server function's and the
+    eager module's; ms per batch of both."""
+    from video_filler_tpu_torch.eval import export_pt2
+    from video_filler_tpu_torch.eval.common import load_generator
+    from video_filler_tpu_torch.serve import InpaintServer
+    rs = np.random.RandomState(12)
+    for label, (regime, opt, path) in nets.items():
+        t0 = time.perf_counter()
+        gen = load_generator(opt, regime, path, "cuda")
+        ep = export_pt2.export_generator(opt, regime, path, gen)
+        pt2 = path.replace("_state.npz", ".pt2")
+        torch.export.save(ep, pt2)
+        seconds = time.perf_counter() - t0
+        g = torch.export.load(pt2).module()
+        args = export_pt2.example_inputs(opt, regime, torch.device("cuda"))
+        ctx = torch.from_numpy(rs.randint(0, 256, tuple(args[0].shape),
+                                          dtype=np.uint8)).cuda()
+        noise = tuple(torch.from_numpy(rs.normal(size=tuple(a.shape))
+                                       .astype(np.float32)).cuda()
+                      for a in args[1:])
+        eager = export_pt2.ServedGenerator(
+            gen, opt.predLen if regime == "video3d" else None)
+        with torch.inference_mode():
+            got = g(ctx, *noise)
+            ref = eager(ctx, *noise)
+            exp_ms = cuda_ms(lambda: g(ctx, *noise), 10)
+            eager_ms = cuda_ms(lambda: eager(ctx, *noise), 10)
+        del eager, gen, g, ep
+        srv = InpaintServer(opt, regime, path, max_delay_ms=5.0)
+        try:
+            if not torch.equal(got, ref):
+                fail(f"export {label}: the .pt2 output differs from the "
+                     f"eager G's ({int((got != ref).sum())} values)")
+            ctx_np = ctx.cpu().numpy()
+            if regime == "center":
+                served = srv._serve_fn(
+                    ctx_np, np.ones(ctx_np.shape[:3] + (1,), np.uint8),
+                    noise[0].cpu().numpy())
+                # the server pastes the hole inside the overlap ring
+                lo = 32 + opt.overlapPred
+                hi = 96 - opt.overlapPred
+                op = opt.overlapPred
+                n_diff = u8_levels(
+                    f"export {label} against the server",
+                    got.cpu().numpy()[:, op:64 - op, op:64 - op],
+                    served[:, lo:hi, lo:hi])
+            else:
+                served = srv._serve_fn(
+                    ctx_np, np.ones(ctx_np.shape[:3] + (1,), np.uint8))
+                n_diff = u8_levels(f"export {label} against the server",
+                                   got.cpu().numpy(), served)
+        finally:
+            srv.close()
+        print(f"export {label}: {os.path.basename(pt2)} "
+              f"({os.path.getsize(pt2) / 1e6:.1f} MB) written in "
+              f"{seconds:.1f} s; reloaded output equals the eager G's "
+              f"exactly and is within one uint8 level of the server "
+              f"function's ({n_diff} values differ); batch 64: exported "
+              f"{exp_ms:.2f} ms, eager {eager_ms:.2f} ms per batch on {smi}")
+
+
+def parallel_phase(torch, np, fl, Opt, from_args, split_regime, step_mod,
+                   loop, run, tmp, smi):
+    """Phase 8: (a) an NCCL world of one rank, (b) two gloo ranks sharing
+    the card, (c) dataParallel serving refused on one card and the
+    torch.export artifacts.  Returns the loss-kernel launches per rank of
+    the full-width parallel runs."""
+    from video_filler_tpu_torch.data.synthetic import make_image_folder
+    from video_filler_tpu_torch.parallel.launch import run_world
+    from video_filler_tpu_torch.serve import InpaintServer
+    j = lambda *p: os.path.join(tmp, *p)  # noqa: E731
+    specs = par_specs(np)
+    launches = {}
+
+    # (a) the production backend at world 1
+    t0 = time.perf_counter()
+    world1 = dict(specs[0][1], n_data=1, n_shard=1)   # center
+    one = run_world(1, par_world1, (tmp, run["center_args"], run["video3d"],
+                                    [world1]),
+                    backend="nccl", timeout_s=PAR_WORLD_S)[0]
+    for got, ref in one["tiny"]:
+        p, s = _check_tiny("NCCL world 1, tiny center", got, ref)
+        for k, v in ref["metrics"].items():
+            if not math.isclose(got["metrics"][k], v, rel_tol=1e-5,
+                                abs_tol=1e-7):
+                fail(f"NCCL world 1: metric {k} {got['metrics'][k]} vs the "
+                     f"plain step's {v} (rtol 1e-5)")
+        print(f"(a) NCCL world 1: the tiny f32 center step through the mesh "
+              f"code equals the plain step on the card (metrics rtol 1e-5; "
+              f"params max|diff| {p:.2e}, BN stats {s:.2e})")
+    for name, steps in (("center", 3), ("center_resumed", 3),
+                        ("video3d", 2)):
+        res = one[name]
+        _check_run(f"NCCL {name}", res, steps)
+        launches[f"nccl1_{name}"] = {"rank0": res["launches"]}
+        print(f"(a) NCCL world 1, {name}: {steps} full-width bf16 steps "
+              f"through train.loop.main in {res['seconds']:.1f} s (backend "
+              f"{res['backend']}), last step {1e3 * res['steps'][-1]['time']:.1f}"
+              f" ms; launches {res['launches']}; errG_l2 "
+              + " ".join(f"{r['errG_l2']:.4f}" for r in res["steps"]))
+    if one["center_resumed"]["step"] != 6:
+        fail(f"NCCL center resume ended at step "
+             f"{one['center_resumed']['step']}, expected 6")
+    print(f"(a) took {time.perf_counter() - t0:.1f} s")
+
+    # (b) two ranks on the one card: gloo, both on cuda:0
+    t0 = time.perf_counter()
+    make_image_folder(j("par_data"), n=16, h=140, w=150)
+    dd_args = ["regime=center", "device=cuda", "batchSize=8",
+               "nBottleneck=16", f"DATA_ROOT={j('par_data')}", "loadSize=0",
+               "overlapPred=4", "ntrain=16", "niter=1", "checkpointEvery=5",
+               "display=0", "dataDevice=1", "manualSeed=5", "nThreads=1",
+               *[f"{k}={v}" for k, v in PAR_TINY.items()]]
+    full_runs = [
+        ("par2_dp_center", [*run["center_args"], "ntrain=128"], 2),
+        ("par2_tp_center", [*run["center_args"], "ntrain=128",
+                            "modelParallel=2"], 2),
+        ("par2_sp_video3d", [*run["video3d"], "ntrain=128", "niter=1",
+                             "checkpointEvery=5", "seqParallel=2"], 2),
+    ]
+    two = run_world(2, par_two_ranks,
+                    (tmp, [s for _, s in specs], dd_args, full_runs),
+                    backend="gloo", device="cuda:0", timeout_s=PAR_WORLD_S)
+    for i, (label, spec) in enumerate(specs):
+        ref = par_tiny_step(spec)
+        outs = [o["tiny"][i] for o in two]
+        _same_replicas(label, outs)
+        p, s = _check_tiny(label, outs[0], ref)
+        print(f"(b) {label}, two gloo ranks on cuda:0, tiny f32: equals the "
+              f"one-process step on the card (metrics rtol 1e-4; params "
+              f"max|diff| {p:.2e} <= 4.1e-3; BN stats {s:.2e}); replicas "
+              f"bitwise equal")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        ref_dd = loop.main([*dd_args, "name=par1_dd"])
+    finally:
+        os.chdir(cwd)
+    ref_gen = {k: v.detach().float().cpu().numpy()
+               for k, v in ref_dd.gen.state_dict().items()}
+    for o in two:
+        _check_run("dataDevice DP-2", o["dd"], 2)
+    worst = _close_trees("dataDevice DP-2 against one process",
+                         two[0]["dd"]["gen"], ref_gen, 8.1e-3)
+    if any(not np.array_equal(two[0]["dd"]["gen"][k], two[1]["dd"]["gen"][k])
+           for k in ref_gen):
+        fail("dataDevice DP-2: the replicas differ")
+    print(f"(b) dataDevice DP-2 center, tiny f32, 2 steps through "
+          f"train.loop.main: G within {worst:.2e} of the one-process run "
+          f"(atol 8.1e-3), replicas bitwise equal")
+    for name, _, steps in full_runs:
+        ms = []
+        for rank, o in enumerate(two):
+            res = o["full"][name]
+            _check_run(f"{name} rank {rank}", res, steps)
+            ms.append(1e3 * res["steps"][-1]["time"])
+        launches[name] = {f"rank{r}": o["full"][name]["launches"]
+                          for r, o in enumerate(two)}
+        res = two[0]["full"][name]
+        print(f"(b) {name}: {steps} full-width bf16 steps per rank through "
+              f"train.loop.main in {res['seconds']:.1f} s; last step "
+              f"{' / '.join(f'{m:.1f}' for m in ms)} ms (rank 0 / 1; two "
+              f"ranks sharing one card: not a multi-GPU speed); peak "
+              f"{res['peak_gb']:.2f} GB per rank; launches per rank "
+              f"{launches[name]}; errG_l2 "
+              + " ".join(f"{r['errG_l2']:.4f}" for r in res["steps"]))
+    staged = two[0]["full"]["par2_sp_video3d"]["staged"]
+    print(f"(b) gloo collectives on CUDA tensors staged through pinned "
+          f"host buffers, calls on rank 0 over its runs: {staged} (every op "
+          f"is: parallel/comm.py GLOO_HOST_OPS)")
+    print(f"(b) took {time.perf_counter() - t0:.1f} s")
+
+    # (c) serving and export
+    t0 = time.perf_counter()
+    nets = par_checkpoints(torch, Opt, from_args, split_regime, step_mod,
+                           run, tmp)
+    regime, vopt, vpath = nets["video"]
+    try:
+        InpaintServer(vopt.replace(dataParallel=2), regime, vpath)
+    except SystemExit as e:
+        if "device_count() is 1" not in str(e):
+            fail(f"dataParallel=2 on one card: unexpected message {e}")
+        print(f"(c) serve dataParallel=2 on one card exits: {e}")
+    else:
+        fail("serve dataParallel=2 on one card did not exit")
+    export_checks(torch, np, nets, smi)
+    print(f"(c) took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -1645,6 +2129,13 @@ def main() -> None:
                   run["video"], run["video3d"],
                   run["options"]["center_noiseGen"][1], run["center_args"],
                   run["dd_center"], tmp, smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        phase("8 parallel")
+        par_launches = parallel_phase(torch, np, fl, Opt, from_args,
+                                      split_regime, step_mod, loop, run, tmp,
+                                      smi_line)
 
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"
@@ -1664,6 +2155,9 @@ def main() -> None:
          "replaces": f"{ref}:{line}", **numbers(main_geom, k),
          "launches": run["launches"][k],
          "launches_video3d": run["launches_video3d"][k],
+         "launches_parallel": {
+             name: {rank: n[k] for rank, n in ranks.items()}
+             for name, ranks in par_launches.items()},
          "max_abs_err": err[k], "bound_by": "bytes", "library_ms": None,
          "geometries": {name: numbers(geom, k) for name, geom in knum.items()
                         if f"{k}_cold" in geom}}

@@ -56,8 +56,10 @@ def test_cli_trains_two_steps(tmp_path):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["seqParallel=2"], "ROADMAP A.14"),
-    (["modelParallel=2"], "ROADMAP A.14"),
+    # the JAX package's refusals of the multi-device options: seqParallel
+    # on a 2-D regime, and a mesh larger than the world of one process
+    (["seqParallel=2"], "seqParallel requires regime=video3d"),
+    (["modelParallel=2"], "model axis 2 does not fit: the world size is 1"),
     # the JAX package's refusals of the ported dataDevice
     (["dataDevice=1", "display=1"], "incompatible with display=1"),
     (["dataDevice=1", "display=0", "seqParallel=2"],
@@ -67,7 +69,8 @@ def test_cli_trains_two_steps(tmp_path):
 ], ids=["seqParallel=2-A.14", "modelParallel=2-A.14", "dataDevice-display",
         "dataDevice-seqParallel", "dataDevice-loadSize"])
 def test_unsupported_option_exits_naming_its_roadmap_item(args, match):
-    """The multi-device options exit naming their ROADMAP item; dataDevice
+    """The multi-device options exit where their input cannot run, in the
+    JAX package's words (the mesh naming the world size); dataDevice
     refuses what the JAX package refuses, before any resource exists."""
     with pytest.raises(SystemExit, match=match):
         loop.main([*TINY, *args])

@@ -440,7 +440,8 @@ def test_serving_and_metrics_import_no_jax():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(regime="video3d", noiseGen=True), "video3d has neither"),
-    (dict(dataParallel=2), "A.14")], ids=["video3d", "dataParallel"])
+    (dict(dataParallel=3), "batchSize 4 must be divisible by "
+                           "dataParallel 3")], ids=["video3d", "dataParallel"])
 def test_unported_serving_options_exit_naming_their_item(video_ckpt, kw,
                                                          item):
     popt, path = video_ckpt
@@ -485,3 +486,51 @@ def test_noise_gen_video_server_takes_noise_per_row(tmp_path):
     with pytest.raises(SystemExit, match="full-frame serving does not "
                                          "compose with noiseGen"):
         InpaintServer(popt.replace(frameH=FH, frameW=FW), "video", path)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_data_parallel_replicas_equal_one_device(video_ckpt, n):
+    """dataParallel=N with N CPU replicas (device=cpu): each padded batch
+    runs as N row blocks, one thread per replica, joined in order -- a
+    full batch, padded tails and 8 concurrent single-row posts give what
+    dataParallel=1 gives."""
+    popt, path = video_ckpt
+    one = InpaintServer(popt, "video", path, max_delay_ms=50.0)
+    srv = InpaintServer(popt.replace(dataParallel=n), "video", path,
+                        max_delay_ms=50.0)
+    try:
+        assert [d.type for d in srv.devices] == ["cpu"] * n
+        rs = np.random.RandomState(n)
+        for rows in (4, 3, 1):       # batchSize 4: full, padded tails
+            ctx = rs.randint(0, 256, (rows, 128, 128, 6), np.uint8)
+            mask = _box((rows, 128, 128), (30, 90, 20, 100))
+            np.testing.assert_array_equal(srv.infer(ctx, mask),
+                                          one.infer(ctx, mask))
+        ctxs = [rs.randint(0, 256, (128, 128, 6), np.uint8)
+                for _ in range(8)]
+        mask = _box((1, 128, 128), (40, 80, 40, 80))[0]
+        with ThreadPoolExecutor(8) as pool:
+            outs = list(pool.map(lambda c: _post(srv.port, ctx=c, mask=mask),
+                                 ctxs))
+        for c, out in zip(ctxs, outs):
+            np.testing.assert_array_equal(out,
+                                          one.infer(c[None], mask[None])[0])
+        assert srv.stats()["batches"] >= 2
+    finally:
+        srv.close()
+        one.close()
+
+
+def test_data_parallel_batch_must_divide_and_cards_must_exist(video_ckpt):
+    """batchSize % N is refused with the JAX server's words; N above the
+    card count exits naming it (checked through replica_devices, which the
+    server calls first)."""
+    popt, path = video_ckpt
+    with pytest.raises(SystemExit, match="batchSize 4 must be divisible by "
+                                         "dataParallel 3"):
+        InpaintServer(popt.replace(dataParallel=3), "video", path)
+    assert serve.replica_devices(popt, torch.device("cpu"), 4) == \
+        [torch.device("cpu")]
+    with pytest.raises(SystemExit, match="device_count"):
+        serve.replica_devices(popt.replace(dataParallel=2),
+                              torch.device("cuda"), 4)

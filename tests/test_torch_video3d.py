@@ -340,7 +340,8 @@ def test_fine_size_must_match_the_levels():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(seqParallel=2), NotImplementedError, "ROADMAP A.14"),
+    (dict(seqParallel=3), ValueError, "predLen 2 must divide by "
+                                      "seqParallel 3"),
     (dict(noiseGen=True), ValueError, "video3d has neither"),
     (dict(conditionAdv=True), ValueError, "video3d has neither"),
 ], ids=["seqParallel", "noiseGen", "conditionAdv"])

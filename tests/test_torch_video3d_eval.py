@@ -200,7 +200,7 @@ def test_cli_trains_evaluates_resumes_and_cascades(work, tmp_path,
 
 
 @pytest.mark.parametrize("arg,match", [
-    ("seqParallel=2", "ROADMAP A.14"),
+    ("seqParallel=2", "seq axis 2 does not fit: the world size is 1"),
     ("fineSize=64", "fineSize = 4\\*2\\*\\*video3dLevels = 32"),
     ("noiseGen=1", "video3d has neither"),
 ], ids=["seqParallel", "fineSize", "noiseGen"])

@@ -34,6 +34,13 @@ float leaf is f32).
 A keepBest file (``<name>_best_state.npz``) holds G only: its parameters,
 BN statistics and the step (``flatten_generator``).
 
+On a mesh whose bottleneck is sharded (parallel/mesh.py), a file is still
+the single-device layout: every rank gathers the state
+(``mesh.unsharded``), rank 0 writes it, and a restore reads the full
+state into every rank, which then cuts its shard (the train loop does
+both), so a TP run's checkpoint loads in a one-device run and in the JAX
+package.
+
 Writes are atomic (tmp + rename).  ``async_write=True`` copies the state to
 the host at once -- the step updates the tensors in place right after -- and
 writes the file on a background thread; ``wait_pending_saves`` joins the

@@ -456,12 +456,18 @@ class DeviceSampler:
 
     # -- sampling -----------------------------------------------------------
 
-    def __call__(self, arrays, gen: torch.Generator) -> dict:
+    def __call__(self, arrays, gen: torch.Generator,
+                 rows: torch.Tensor | None = None) -> dict:
+        """The batch of ``opt.batchSize`` rows drawn from ``gen``; with
+        ``rows`` only those rows are gathered (a data rank's share of the
+        global batch, whose decisions are all drawn)."""
         b = self.opt.batchSize
         self.stats["batches"] += 1
+        pick_rows = (lambda d: d) if rows is None else (
+            lambda d: {k: v[rows] for k, v in d.items()})
         if self.regime in ("center", "logo"):
             self.stats["rounds"] += 1
-            return self.gather(arrays, self.draws(gen, b))
+            return self.gather(arrays, pick_rows(self.draws(gen, b)))
         k = self.ATTEMPTS
         p_reject = _REJECT_P[self.regime]
         chosen = None
@@ -483,7 +489,7 @@ class DeviceSampler:
             self.stats["rounds"] += 1
             self.stats["syncs"] += 1
             pending = pending[torch.nonzero(~accepted.any(1)).squeeze(1)]
-        return self.gather(arrays, chosen)
+        return self.gather(arrays, pick_rows(chosen))
 
 
 class NullLoader:

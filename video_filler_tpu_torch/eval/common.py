@@ -26,7 +26,7 @@ def generator_spec(opt: Opt, regime: str):
     option the regime refuses (noiseGen on video3d) exits naming it."""
     try:
         return specs_for_regime(opt, regime)[0]
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         raise SystemExit(str(e)) from None
 
 

@@ -62,32 +62,57 @@ def _initialised(net: torch.nn.Module, gen: torch.Generator):
     return net
 
 
-def build_generator(spec, gen: torch.Generator):
+def build_generator(spec, gen: torch.Generator, seq_group=None):
     """A generator of either family (by its spec) on the CPU, initialised
-    from ``gen``."""
-    cls = Generator3D if isinstance(spec, Video3DSpec) else Generator
-    return _initialised(cls(spec), gen)
+    from ``gen``; ``seq_group``: the 3-D family's sequence-parallel
+    build."""
+    if isinstance(spec, Video3DSpec):
+        return _initialised(Generator3D(spec, seq_group), gen)
+    return _initialised(Generator(spec), gen)
 
 
-def build_discriminator(spec, gen: torch.Generator):
+def build_discriminator(spec, gen: torch.Generator, seq_group=None):
     """A discriminator of either family (by its spec), the conditionAdv one
     where the spec asks for it, on the CPU, initialised from ``gen``."""
     if isinstance(spec, Video3DSpec):
-        cls = Discriminator3D
-    elif spec.condition_adv:
-        cls = ConditionalDiscriminator
-    else:
-        cls = Discriminator
-    return _initialised(cls(spec), gen)
+        return _initialised(Discriminator3D(spec, seq_group), gen)
+    if spec.condition_adv:
+        return _initialised(ConditionalDiscriminator(spec), gen)
+    return _initialised(Discriminator(spec), gen)
 
 
-def build_for_regime(opt, regime: str, gen: torch.Generator | None = None):
+def check_seq_parallel(opt, regime: str) -> None:
+    """seqParallel>1 preflight with the JAX package's words
+    (video_filler_tpu/train/loop.py:198-212)."""
+    if opt.seqParallel <= 1:
+        return
+    if regime != "video3d":
+        raise ValueError("seqParallel requires regime=video3d "
+                         "(the 2D regimes have no temporal axis)")
+    if opt.predLen % opt.seqParallel:
+        raise ValueError(f"predLen {opt.predLen} must divide by "
+                         f"seqParallel {opt.seqParallel}")
+    if opt.modelParallel > 1:
+        raise ValueError("seqParallel and modelParallel are exclusive")
+
+
+def build_for_regime(opt, regime: str, gen: torch.Generator | None = None,
+                     mesh=None):
     """(generator, discriminator) for a regime, on the CPU, initialised from
-    ``gen`` (G's weights drawn first, then D's)."""
-    if opt.seqParallel > 1:
-        raise NotImplementedError(
-            "seqParallel>1 (sequence-parallel video3d, parallel/temporal.py) "
-            "is not ported yet (ROADMAP A.14)")
+    ``gen`` (G's weights drawn first, then D's, the same draws with or
+    without a mesh).  ``mesh`` (parallel/mesh.py): the networks of one
+    rank, with their collectives attached -- sequence-parallel temporal
+    convs on a ('data','seq') mesh -- and their bottleneck still full
+    (``shard_state`` cuts it)."""
+    check_seq_parallel(opt, regime)
     gspec, dspec = specs_for_regime(opt, regime)
     gen = gen or torch.Generator().manual_seed(0)
-    return build_generator(gspec, gen), build_discriminator(dspec, gen)
+    seq_group = None
+    if mesh is not None and mesh.mesh_dim_names[1] == "seq":
+        seq_group = mesh.get_group("seq")
+    g = build_generator(gspec, gen, seq_group)
+    d = build_discriminator(dspec, gen, seq_group)
+    if mesh is not None:
+        from video_filler_tpu_torch.parallel.mesh import parallelize
+        parallelize(g, d, mesh)
+    return g, d

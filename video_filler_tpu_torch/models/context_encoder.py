@@ -98,10 +98,15 @@ class Generator(nn.Module):
     channels, so the bottleneck BN and ``up0`` are nBottleneck+nz wide
     (train.lua:109-124)."""
 
+    # Under a model-sharded bottleneck only the last model rank joins z
+    # (parallel/mesh.py); True on one device.
+    noise_here = True
+
     def __init__(self, spec: GeneratorSpec):
         super().__init__()
         nef, ngf, dt = spec.nef, spec.ngf, spec.compute_dtype
         ub = spec.use_bias
+        self.spec = spec
         self.noise_gen = spec.noise_gen
         nb = spec.n_bottleneck
         nz_size = nb + (spec.nz if spec.noise_gen else 0)
@@ -143,7 +148,7 @@ class Generator(nn.Module):
         if self.noise_gen:
             x, z = x
         h = self.enc(x.permute(0, 3, 1, 2), update_stats)
-        if self.noise_gen:
+        if self.noise_gen and self.noise_here:
             h = torch.cat([h, self.noise(z.permute(0, 3, 1, 2))], dim=1)
         h = self.bott_act(self.bott_bn(h, update_stats))
         # The (B,nb,1,1) bottleneck has NCHW strides, which PyTorch reads as

@@ -74,14 +74,24 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor, *,
                training: bool, update_stats: bool = True,
                momentum: float = BN_MOMENTUM,
-               eps: float = BN_EPS) -> torch.Tensor:
+               eps: float = BN_EPS, group=None,
+               replicas: int = 1) -> torch.Tensor:
     """``nn.SpatialBatchNormalization`` with Torch semantics.
 
     Training: normalize by the biased batch variance; when ``update_stats``,
     update the running statistics in place, the variance with the unbiased
     estimate.  ``update_stats=False``, or a ``running_stats_frozen`` block,
     uses batch statistics and leaves the running ones as they are.  Eval: running statistics.  Statistics in f32;
-    the output comes back in x's dtype."""
+    the output comes back in x's dtype.
+
+    ``group`` (a process group, training only): the batch statistics are
+    those of the union of the group's batches (``_global_batch_norm``),
+    where each batch is held by ``replicas`` ranks of the group alike."""
+    if training and group is not None:
+        return _global_batch_norm(
+            x, weight, bias, running_mean, running_var, group, replicas,
+            update=update_stats and not getattr(_FROZEN, "on", False),
+            momentum=momentum, eps=eps)
     if training and not update_stats:
         running_mean = running_var = None
     elif getattr(_FROZEN, "on", False):
@@ -93,11 +103,61 @@ def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                         training=training, momentum=momentum, eps=eps)
 
 
+def _global_batch_norm(x, weight, bias, running_mean, running_var, group,
+                       replicas: int = 1, *, update: bool, momentum: float,
+                       eps: float):
+    """Training-mode BatchNorm over a process group's batches, two-pass in
+    f32: the per-channel sums and the element count summed over the group,
+    the global mean, then the sum of squared deviations from it summed over
+    the group.  The biased variance normalizes; the running variance takes
+    the unbiased estimate over the global count.  The sums are all-reduces
+    whose backward is the same all-reduce (parallel/comm.py), so the
+    gradients are those of BatchNorm over the union of the batches.
+
+    ``replicas``: how many ranks of the group hold each batch (the model
+    ranks of a TP data group, whose replicated layers see the same rows):
+    each contributes 1/replicas of its sums.  The statistics are then
+    reduced over every rank that holds a copy of the layer, so the copies'
+    running statistics stay equal even where their convs round
+    differently."""
+    from video_filler_tpu_torch.parallel import comm
+
+    dims = [d for d in range(x.dim()) if d != 1]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float()
+    c = x.shape[1]
+    count = torch.full((1,), x.numel() // c, dtype=torch.float32,
+                       device=x.device)
+    local = torch.cat([xf.sum(dims), count])
+    share = (lambda t: t) if replicas == 1 else (lambda t: t / replicas)
+    sums = comm.all_reduce_sum(share(local), group)
+    n = sums[c].detach()
+    mean = sums[:c] / n
+    dev = xf - mean.reshape(shape)
+    var = comm.all_reduce_sum(share(dev.square().sum(dims)), group) / n
+    y = dev * torch.rsqrt(var + eps).reshape(shape)
+    y = y * weight.reshape(shape) + bias.reshape(shape)
+    if update:
+        with torch.no_grad():
+            unbiased = var * (n / (n - 1).clamp(min=1))
+            running_mean.mul_(1 - momentum).add_(mean.detach(),
+                                                 alpha=momentum)
+            running_var.mul_(1 - momentum).add_(unbiased.detach(),
+                                                alpha=momentum)
+    return y.to(x.dtype)
+
+
 class ConvBase(nn.Module):
     """A conv: its ``weight`` (the port's layout), an optional ``bias`` of
     ``cout`` (None when bias-free), stride, padding and compute dtype, and
     the reference's N(0, 0.02) init with a zero bias.  The 2-D and 3-D
     (ops/layers3d.py) convs derive from it."""
+
+    # The sharded builds' collectives around the conv (parallel/mesh.py
+    # ``parallelize``): ``pre`` on the input, ``post`` on the output before
+    # the bias.  None on the single-device path.
+    pre = None
+    post = None
 
     def __init__(self, shape: tuple[int, ...], cout: int, stride, padding,
                  dtype: torch.dtype, bias: bool = False):
@@ -119,6 +179,16 @@ class ConvBase(nn.Module):
             return y
         return y + self.bias.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 2))
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv (a subclass's ``conv``) between the ``pre`` and ``post``
+        collectives, then the bias."""
+        if self.pre is not None:
+            x = self.pre(x)
+        y = self.conv(x)
+        if self.post is not None:
+            y = self.post(y)
+        return self.add_bias(y)
+
 
 class Conv2d(ConvBase):
 
@@ -128,9 +198,8 @@ class Conv2d(ConvBase):
         super().__init__((cout, cin, kernel, kernel), cout, stride, padding,
                          dtype, bias)
 
-    def forward(self, x):
-        return self.add_bias(conv2d(x, self.weight, self.stride, self.padding,
-                                    self.dtype))
+    def conv(self, x):
+        return conv2d(x, self.weight, self.stride, self.padding, self.dtype)
 
 
 class ConvTranspose2d(ConvBase):
@@ -141,14 +210,19 @@ class ConvTranspose2d(ConvBase):
         super().__init__((cin, cout, kernel, kernel), cout, stride, padding,
                          dtype, bias)
 
-    def forward(self, x):
-        return self.add_bias(conv2d_transpose(x, self.weight, self.stride,
-                                              self.padding, self.dtype))
+    def conv(self, x):
+        return conv2d_transpose(x, self.weight, self.stride, self.padding,
+                                self.dtype)
 
 
 class BatchNorm(nn.Module):
     """Parameters ``weight`` (gamma) and ``bias`` (beta); buffers
-    ``running_mean`` and ``running_var``."""
+    ``running_mean`` and ``running_var``.  ``group``: the process group
+    whose batches share the statistics, ``replicas`` ranks of it holding
+    each batch (parallel/mesh.py ``parallelize``); None on one device."""
+
+    group = None
+    replicas = 1
 
     def __init__(self, ch: int):
         super().__init__()
@@ -165,7 +239,8 @@ class BatchNorm(nn.Module):
     def forward(self, x, update_stats: bool = True):
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, training=self.training,
-                          update_stats=update_stats)
+                          update_stats=update_stats, group=self.group,
+                          replicas=self.replicas)
 
 
 class Sequential(nn.ModuleDict):

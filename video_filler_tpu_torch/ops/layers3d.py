@@ -37,11 +37,9 @@ class Conv3d(ConvBase):
         super().__init__((cout, cin, *_triple(kernel)), cout, _triple(stride),
                          _triple(padding), dtype, bias)
 
-    def forward(self, x):
-        return self.add_bias(F.conv3d(x.to(self.dtype),
-                                      self.weight.to(self.dtype),
-                                      stride=self.stride,
-                                      padding=self.padding))
+    def conv(self, x):
+        return F.conv3d(x.to(self.dtype), self.weight.to(self.dtype),
+                        stride=self.stride, padding=self.padding)
 
 
 class ConvTranspose3d(ConvBase):
@@ -54,10 +52,10 @@ class ConvTranspose3d(ConvBase):
         super().__init__((cin, cout, *_triple(kernel)), cout, _triple(stride),
                          _triple(padding), dtype, bias)
 
-    def forward(self, x):
-        return self.add_bias(F.conv_transpose3d(
-            x.to(self.dtype), self.weight.to(self.dtype), stride=self.stride,
-            padding=self.padding))
+    def conv(self, x):
+        return F.conv_transpose3d(x.to(self.dtype),
+                                  self.weight.to(self.dtype),
+                                  stride=self.stride, padding=self.padding)
 
 
 def fold_time(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
 """Inference serving: a dynamic-batching inpainting server over HTTP
-(counterpart of video_filler_tpu/serve.py), on one device.
+(counterpart of video_filler_tpu/serve.py), on one device, or on N with
+``dataParallel=N``.
 
 * **Dynamic batching**: concurrent requests are gathered into one
   fixed-size batch (the tail padded), so single-image requests ride a full
@@ -10,6 +11,11 @@
   the host<->device copies are a quarter of the f32 size.
 * **One device client**: one worker thread runs every batch, so the HTTP
   threads never contend for the device.
+* **dataParallel=N** (JAX serve.py:341-365): N replicas of G in one
+  process, on ``cuda:0..N-1`` (all on the CPU with ``device=cpu``); each
+  padded batch is split into N row blocks that run concurrently, one
+  thread per replica, and are joined in order.  batchSize must divide by
+  N, and N may not exceed the cards there are.
 
 API (numpy .npz bodies):
   POST /inpaint   {"ctx": (H,W,C) or (B,H,W,C) uint8 masked context,
@@ -207,13 +213,11 @@ class InpaintServer:
     def __init__(self, opt: Opt, regime: str, net_path: str,
                  host: str = "localhost", port: int = 0,
                  max_delay_ms: float = 5.0, device_thread: bool = True):
-        if opt.dataParallel > 1:
-            raise SystemExit("serving dataParallel>1 is not ported yet "
-                             "(ROADMAP A.14)")
         gspec = generator_spec(opt, regime)  # noiseGen on video3d: exit
         self.noise_gen, self.nz = bool(opt.noiseGen), int(opt.nz)
         self.device = resolve_device(opt)
         self.batch = int(opt.batchSize)
+        self.devices = replica_devices(opt, self.device, self.batch)
         self.fs = fs = int(opt.fineSize)
         video3d = regime == "video3d"
         if video3d:
@@ -255,33 +259,14 @@ class InpaintServer:
             self.composable = False    # the frame function composites
         self.max_delay = max_delay_ms / 1000.0
 
-        gen = load_generator(opt, regime, net_path, self.device)
-        if self.video_frame:
-            # initializer cascade (test_vid_wholeim.lua:178-190)
-            init_gen = (load_generator(opt, regime, opt.initName, self.device)
-                        if opt.withInit and opt.initName else None)
-            self._device_fn = _video_frame_fn(opt, gen, init_gen, fs)
-        elif self.wholeim_frame:
-            self._device_fn = _wholeim_frame_fn(opt, gen, fs)
-        else:
-            composable, center_paste = self.composable, self.center_paste
-            frames, noise_gen = opt.predLen, self.noise_gen
-
-            def fn(ctx_u8, mask_u8, noise=None):
-                x = normalize_uint8(ctx_u8)
-                if video3d:
-                    out = fold_time(gen(unfold_time(x, frames)).float())
-                else:
-                    out = gen((x, noise) if noise_gen else x).float()
-                if composable:
-                    # clients often send 0/255 masks: nonzero = in the hole
-                    m = (mask_u8 > 0).float()
-                    out = m * out + (1.0 - m) * x
-                elif center_paste:
-                    out = masks.paste_center(x, out, opt.overlapPred)
-                return denormalize_to_uint8(out)
-
-            self._device_fn = fn
+        # One device function per replica, each with its own copy of G.
+        self._device_fns = [self._build_device_fn(opt, regime, net_path, dev)
+                            for dev in self.devices]
+        self._pool = None
+        if len(self.devices) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            self._pool = ThreadPoolExecutor(len(self.devices),
+                                            thread_name_prefix="replica")
 
         # The backlog is bounded in rows (a 64-row POST charges 64): four
         # full batches.  Over budget is refused at once (503).
@@ -322,17 +307,64 @@ class InpaintServer:
 
     # ---- device side ----------------------------------------------------
 
+    def _build_device_fn(self, opt: Opt, regime: str, net_path: str,
+                         device: torch.device):
+        """The mode's function on ``device``, around a generator loaded
+        there: (ctx_u8, mask_u8[, noise]) device tensors -> uint8."""
+        fs = self.fs
+        gen = load_generator(opt, regime, net_path, device)
+        if self.video_frame:
+            # initializer cascade (test_vid_wholeim.lua:178-190)
+            init_gen = (load_generator(opt, regime, opt.initName, device)
+                        if opt.withInit and opt.initName else None)
+            return _video_frame_fn(opt, gen, init_gen, fs)
+        if self.wholeim_frame:
+            return _wholeim_frame_fn(opt, gen, fs)
+        composable, center_paste = self.composable, self.center_paste
+        frames, noise_gen = opt.predLen, self.noise_gen
+        video3d = regime == "video3d"
+
+        def fn(ctx_u8, mask_u8, noise=None):
+            x = normalize_uint8(ctx_u8)
+            if video3d:
+                out = fold_time(gen(unfold_time(x, frames)).float())
+            else:
+                out = gen((x, noise) if noise_gen else x).float()
+            if composable:
+                # clients often send 0/255 masks: nonzero = in the hole
+                m = (mask_u8 > 0).float()
+                out = m * out + (1.0 - m) * x
+            elif center_paste:
+                out = masks.paste_center(x, out, opt.overlapPred)
+            return denormalize_to_uint8(out)
+
+        return fn
+
+    def _run_replica(self, i: int, arrays: list[np.ndarray]) -> np.ndarray:
+        """Replica ``i`` on its row block: to its device, its function,
+        the uint8 result back."""
+        dev = self.devices[i]
+        with torch.inference_mode():
+            args = [torch.from_numpy(a).to(dev) for a in arrays]
+            return self._device_fns[i](*args).cpu().numpy()
+
     def _serve_fn(self, ctx: np.ndarray, mask: np.ndarray,
                   noise: np.ndarray | None = None) -> np.ndarray:
         """One padded batch: uint8 ctx (batch, in_h, in_w, in_c), mask
         (batch, in_h, in_w, 1) and, for a noiseGen G, f32 noise
         (batch, 1, 1, nz) to the device, the mode's function there, the
-        uint8 result back."""
-        args = [torch.from_numpy(ctx).to(self.device),
-                torch.from_numpy(mask).to(self.device)]
-        if self.noise_gen:
-            args.append(torch.from_numpy(noise).to(self.device))
-        return self._device_fn(*args).cpu().numpy()
+        uint8 result back; under dataParallel, one row block per replica,
+        concurrently, joined in order."""
+        arrays = [ctx, mask] + ([noise] if self.noise_gen else [])
+        if self._pool is None:
+            return self._run_replica(0, arrays)
+        n = len(self.devices)
+        blocks = [[np.ascontiguousarray(b) for b in np.split(a, n)]
+                  for a in arrays]
+        futs = [self._pool.submit(self._run_replica, i,
+                                  [blk[i] for blk in blocks])
+                for i in range(n)]
+        return np.concatenate([f.result() for f in futs])
 
     def _expire(self, fut: Future) -> None:
         if not fut.done():
@@ -645,6 +677,29 @@ class InpaintServer:
         if self._worker is not None:
             self._worker.join(timeout=5.0)
         self._http_thread.join(timeout=2.0)
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+def replica_devices(opt: Opt, device: torch.device,
+                    batch: int) -> list[torch.device]:
+    """The devices of the ``dataParallel`` replicas: ``[device]`` for one;
+    ``cuda:0..N-1`` on the card, N times the CPU with ``device=cpu``.
+    batchSize must divide by N (the JAX server's words), and N may not
+    exceed the cards there are."""
+    n = max(int(opt.dataParallel), 1)
+    if n == 1:
+        return [device]
+    if batch % n:
+        raise SystemExit(f"batchSize {batch} must be divisible by "
+                         f"dataParallel {n} (fixed padded device batches)")
+    if device.type == "cpu":
+        return [device] * n
+    cards = torch.cuda.device_count()
+    if n > cards:
+        raise SystemExit(f"dataParallel {n} needs {n} cards, one replica "
+                         f"each, but torch.cuda.device_count() is {cards}")
+    return [torch.device("cuda", i) for i in range(n)]
 
 
 def main(argv: list[str]) -> None:

@@ -40,17 +40,35 @@ HTTP on ``display_port`` (utils/dashboard.py) while it trains.
 the card) of steps [5, 5+N) of the run into one Chrome trace under
 ``profileDir``; a run that ends inside the window stops it at its end.
 
-Options the port does not run yet exit with the ROADMAP item that brings
-them (``unsupported_options``): only the multi-device ones remain.
+Multi-process (one process per card, started by ``torchrun``): ``main``
+joins the world first (parallel/distributed.py ``initialize``), then every
+rank runs ``train`` on a mesh that covers the world -- ('data','model'),
+or ('data','seq') with ``seqParallel`` (parallel/mesh.py, temporal.py).
+Each data rank's loader draws its rows of the global batch from a stream
+seeded by its data rank (the model or seq ranks of one data group see the
+same rows; seq ranks then take their own frames), and the preprocess
+decisions and noiseGen's z are drawn for the global batch, each data rank
+taking its rows.  Rank 0 alone writes checkpoints, in the single-device
+layout (a sharded bottleneck is gathered first), and the logs; the other
+ranks log to ``{name}_p{rank}``.  A resume that differs between ranks
+exits on every rank; ``evalEvery`` is refused and ``display`` disabled
+for more than one process, and SIGTERM is handled for one process only.
+
+    torchrun --standalone --nproc_per_node=8 -m video_filler_tpu_torch.train \
+        regime=video DATA_ROOT=/data batchSize=64 [modelParallel=2]
+
+Options a regime refuses exit naming the option (``unsupported_options``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import sys
 import threading
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -79,12 +97,21 @@ from video_filler_tpu_torch.eval.metrics import evaluate
 from video_filler_tpu_torch.models import (
     build_generator,
     check_fine_size,
+    check_seq_parallel,
     specs_for_regime,
 )
 from video_filler_tpu_torch.ops import masks
+from video_filler_tpu_torch.parallel import comm, distributed
+from video_filler_tpu_torch.parallel.mesh import (
+    coords,
+    make_mesh,
+    mesh_shape,
+    unsharded,
+)
 from video_filler_tpu_torch.train.step import (
     check_condition_adv,
     draw_noise,
+    global_draws,
     init_train_state,
     make_preprocess,
     make_train_step,
@@ -102,19 +129,40 @@ _HIGHER_BETTER = {"psnr_db", "ssim"}
 
 
 def unsupported_options(opt: Opt, regime: str) -> list[str]:
-    """Every requested option the port cannot run yet, each naming the
-    ROADMAP item that brings it, and every option the regime refuses."""
+    """Every requested option the regime refuses, each in the JAX
+    package's words."""
     out = []
     try:
         specs_for_regime(opt, regime)      # noiseGen/conditionAdv on video3d
         check_fine_size(opt, regime)       # video3d
         check_condition_adv(opt, regime)   # center only
-    except (NotImplementedError, ValueError) as e:
+        check_seq_parallel(opt, regime)    # video3d, dividing predLen
+    except ValueError as e:
         out.append(str(e))
-    if opt.seqParallel > 1 or opt.modelParallel > 1 or opt.dataParallel > 1:
-        out.append("seqParallel/modelParallel/dataParallel>1 (ROADMAP A.14) "
-                   "is not ported yet")
     return out
+
+
+def mesh_plan(opt: Opt, world: int) -> tuple[str, int, int]:
+    """(second axis, n_data, its size) of the run's mesh over ``world``
+    processes: ('seq', n_data, seqParallel) with seqParallel > 1, else
+    ('model', n_data, modelParallel); dataParallel=0 means all the
+    remaining processes.  A mesh that does not cover the world, or a data
+    axis that does not divide the batch, exits naming the sizes (the JAX
+    loop falls back to fewer devices; here an idle rank would block every
+    collective)."""
+    axis, n_shard = (("seq", opt.seqParallel) if opt.seqParallel > 1
+                     else ("model", opt.modelParallel))
+    try:
+        n_data, _ = mesh_shape(opt.dataParallel or None, n_shard, world,
+                               axis)
+    except ValueError as e:
+        raise SystemExit(f"{axis}Parallel={n_shard}, dataParallel="
+                         f"{opt.dataParallel}: {e}") from None
+    if opt.batchSize % n_data:
+        raise SystemExit(
+            f"batchSize {opt.batchSize} must divide by the data axis "
+            f"{n_data} (set dataParallel to a divisor of the batch)")
+    return axis, n_data, n_shard
 
 
 def check_data_device(opt: Opt, regime: str) -> None:
@@ -262,26 +310,86 @@ def train(opt: Opt, regime: str):
         raise SystemExit(f"withInit requires regime=video or video3d, not "
                          f"{regime!r}")
     check_eval_options(opt, regime)
+    multi = distributed.is_multi()
+    world = distributed.process_count()
+    rank = distributed.process_index()
+    is_main = rank == 0
+    # One process without a process group runs the single-device path; a
+    # mesh request it cannot meet exits naming the world size.
+    axis, n_data, n_shard = mesh_plan(opt, world)
     device = resolve_device(opt)
     seed = opt.manualSeed or int(np.random.randint(1, 10000))
-    print(f"Seed: {seed}")
-    sampler, ds_size = make_sampler(opt, regime)
-    state = init_train_state(opt, regime, torch.Generator().manual_seed(seed))
+    if multi and not opt.manualSeed:
+        # Init and every per-step stream must agree across ranks.
+        t = torch.tensor([seed], dtype=torch.int64, device=device)
+        seed = int(comm.broadcast_(t, 0).item())
+    if is_main:
+        print(f"Seed: {seed}")
+    mesh = None
+    where = None
+    if multi:
+        from video_filler_tpu_torch.parallel.temporal import make_seq_mesh
+        mesh = (make_seq_mesh(n_data, n_shard) if axis == "seq"
+                else make_mesh(n_data, n_shard))
+        where = coords(mesh)
+        if opt.display and is_main:
+            print("display grids disabled under multi-process (each rank "
+                  "holds a slice of the batch)")
+        opt = opt.replace(display=False)
+    sampler_opt = opt
+    if where is not None:
+        _, per_rank = distributed.process_batch_slice(
+            opt.batchSize, where.n_data, where.data_rank)
+        sampler_opt = opt.replace(batchSize=per_rank)
+    sampler, ds_size = make_sampler(sampler_opt, regime)
+    state = init_train_state(opt, regime, torch.Generator().manual_seed(seed),
+                             mesh)
 
     start_epoch = 1
-    if opt.autoResume:
-        # Restart from wherever the last run checkpointed (the reference's
-        # only recovery is manual loadName/loadIter,
-        # train_vid_weighted.lua:242-257).
-        found = restore_latest(opt.checkpointDir, opt.name, state)
-        if found is not None:
-            start_epoch = found[1] + 1
-            print(f"auto-resumed {opt.name} at epoch {found[1]}")
-    elif opt.loadName and opt.loadIter:
-        path = checkpoint_path(opt.checkpointDir, opt.loadName, opt.loadIter)
-        restore_checkpoint(path, state)
-        start_epoch = opt.loadIter + 1
-        print(f"Resumed {path} at epoch {opt.loadIter}")
+    resume_miss = False
+    # Checkpoints hold the single-device layout: under a sharded
+    # bottleneck the state is gathered to restore into it, then cut again.
+    def full():
+        return (unsharded(state, mesh) if mesh is not None
+                else contextlib.nullcontext(state))
+
+    with full():
+        if opt.autoResume:
+            # Restart from wherever the last run checkpointed (the
+            # reference's only recovery is manual loadName/loadIter,
+            # train_vid_weighted.lua:242-257).
+            found = restore_latest(opt.checkpointDir, opt.name, state)
+            if found is not None:
+                start_epoch = found[1] + 1
+                if is_main:
+                    print(f"auto-resumed {opt.name} at epoch {found[1]}")
+        elif opt.loadName and opt.loadIter:
+            path = checkpoint_path(opt.checkpointDir, opt.loadName,
+                                   opt.loadIter)
+            try:
+                restore_checkpoint(path, state)
+            except FileNotFoundError:
+                if not multi:
+                    raise
+                resume_miss = True  # reported on every rank below
+            else:
+                start_epoch = opt.loadIter + 1
+                if is_main:
+                    print(f"Resumed {path} at epoch {opt.loadIter}")
+    if multi and (opt.autoResume or (opt.loadName and opt.loadIter)):
+        # Rank 0 writes the checkpoints; every rank restores from its own
+        # view of checkpointDir.  Unless that is one shared filesystem the
+        # ranks resume from different epochs and the step desyncs: every
+        # rank exits, with the evidence.
+        mine = torch.tensor([-1 if resume_miss else start_epoch],
+                            dtype=torch.int64, device=device)
+        epochs = [int(e) for e in comm.all_gather(mine)]
+        if len(set(epochs)) != 1 or resume_miss:
+            raise SystemExit(
+                f"multi-process resume desync: per-rank resume epochs "
+                f"{epochs} (-1 = checkpoint missing) -- checkpointDir "
+                f"{opt.checkpointDir!r} must be a shared filesystem visible "
+                "to every process")
 
     init_net = None
     if with_init:
@@ -308,8 +416,17 @@ def train(opt: Opt, regime: str):
             print(f"keepBest: resuming best-so-far {opt.bestMetric}="
                   f"{best:.4g} from {best_path}")
 
-    preprocess = make_preprocess(opt, regime)
-    step_fn = make_train_step(opt, regime, with_init=with_init)
+    if where is not None and where.shard_axis == "seq":
+        # each seq rank preprocesses its own frames of the clip
+        from video_filler_tpu_torch.parallel.temporal import (
+            shard_sp_host_batch,
+        )
+        preprocess = make_preprocess(
+            opt.replace(predLen=opt.predLen // where.n_shard), regime)
+    else:
+        preprocess = make_preprocess(opt, regime)
+    step_fn = make_train_step(opt, regime, with_init=with_init,
+                              **({} if mesh is None else {"mesh": mesh}))
     display_gen = torch.Generator().manual_seed(seed + 1)
 
     # Resume continuity: the restored global step is folded into both
@@ -322,19 +439,29 @@ def train(opt: Opt, regime: str):
         # The corpus goes to the device once, as uint8; nothing per step
         # crosses from the host but the generator's seed.
         arrays, dd_meta = device_data.load_corpus(opt, regime)
+        if multi:
+            # Every rank decodes the (shared) corpus onto its own card.
+            # Replicas that differ would train on different data silently:
+            # the ranks first agree on a checksum.
+            check_corpus(opt, arrays, device)
         corpus = device_data.to_device(arrays, device)
         dev_sampler = device_data.DeviceSampler(opt, regime, dd_meta, device)
         data_gen = torch.Generator(device=device)
-        print(f"dataDevice: {dd_meta['desc']} resident on device "
-              f"({sum(a.nbytes for a in arrays) / 1e6:.0f} MB); per-step "
-              f"host transfer: one seed")
+        if is_main:
+            print(f"dataDevice: {dd_meta['desc']} resident on device "
+                  f"({sum(a.nbytes for a in arrays) / 1e6:.0f} MB); "
+                  f"per-step host transfer: one seed")
         del arrays
         loader = device_data.NullLoader()
     else:
+        # The data rank, not the global rank, seeds the stream: the model
+        # or seq ranks of one data group must see the same rows.
+        data_rank = where.data_rank if where is not None else 0
         loader = DataLoader(sampler, opt.nThreads,
-                            seed=seed + 104729 * step0,
+                            seed=seed + 7919 * data_rank + 104729 * step0,
                             prefetch_depth=opt.prefetchDepth)
-    logger = MetricsLogger(opt.name)
+    logger = MetricsLogger(opt.name if is_main else f"{opt.name}_p{rank}",
+                           quiet=not is_main)
     ntrain = min(ds_size, opt.ntrain)
     steps_per_epoch = max(int(ntrain // opt.batchSize), 1)
     done = 0
@@ -343,6 +470,25 @@ def train(opt: Opt, regime: str):
     def to_device(host_batch):
         return {k: torch.from_numpy(v).to(device)
                 for k, v in host_batch.items()}
+
+    rows = None
+    if where is not None:
+        rows = distributed.data_rows(opt.batchSize, where.n_data,
+                                     where.data_rank,
+                                     int(opt.gradAccum)).to(device)
+
+    def prepare(batch, gen):
+        """A step batch from a loader batch: on a mesh, the preprocess
+        decisions drawn for the global batch and this data rank's rows of
+        them taken, and on a seq mesh this rank's frames."""
+        if where is None:
+            return preprocess(batch, gen)
+        if where.shard_axis == "seq":
+            batch = shard_sp_host_batch(where, batch, nc=opt.nc)
+        key = "raw_masked" if regime in ("logo", "wholeim") else "raw"
+        return preprocess(batch, draws=global_draws(
+            opt, regime, gen, tuple(batch[key].shape), where.n_data,
+            where.data_rank))
 
     def eval_event(epoch: int, best: float | None) -> float | None:
         """Score the live G on evalSplit, log it; with keepBest, rewrite the
@@ -385,19 +531,22 @@ def train(opt: Opt, regime: str):
         logger.log_step(epoch_, step_, total, host, t_step, t_data)
 
     dashboard = None
-    if opt.displayServer:
+    if opt.displayServer and is_main:
         # Live HTTP view over the JSONL and PNG dumps (the reference's
         # `display` server, train.lua:427-445).
         dashboard = Dashboard(opt.name, port=opt.display_port)
         print(f"dashboard: http://localhost:{dashboard.port}/")
-    profiler = _StepProfiler(opt, device)
+    profiler = _StepProfiler(opt if is_main else opt.replace(profileSteps=0),
+                             device)
 
     # SIGTERM (preemption): finish the step in flight, checkpoint, exit
     # cleanly.  The handler only sets a flag; the work happens at the next
     # step boundary on the main thread.
     preempted = threading.Event()
     old_sigterm = None
-    if threading.current_thread() is threading.main_thread():
+    # One process only: a signal delivered to one rank would desync the
+    # world mid-collective (coordinated preemption is the cluster's job).
+    if world == 1 and threading.current_thread() is threading.main_thread():
         old_sigterm = signal.signal(signal.SIGTERM,
                                     lambda signum, frame: preempted.set())
 
@@ -413,11 +562,11 @@ def train(opt: Opt, regime: str):
                     batch = to_device(host_batch)
                 else:
                     batch = dev_sampler(corpus, data_gen.manual_seed(
-                        data_seed(seed, step0 + done)))
+                        data_seed(seed, step0 + done)), rows)
                     t_data = time.perf_counter() - t0
                 gen = torch.Generator().manual_seed(
                     step_seed(seed, step0 + done))
-                batch = preprocess(batch, gen)
+                batch = prepare(batch, gen)
                 # a noiseGen step draws its z from the step's generator
                 metrics = step_fn(state, batch, init_net,
                                   **({"gen": gen} if opt.noiseGen else {}))
@@ -461,15 +610,21 @@ def train(opt: Opt, regime: str):
             if opt.evalEvery > 0 and epoch % opt.evalEvery == 0:
                 best = eval_event(epoch, best)
             if epoch % opt.checkpointEvery == 0:
-                # Prune BEFORE saving: `keep` finished checkpoints stay on
-                # disk even if the incoming async write fails.
-                prune_checkpoints(opt.checkpointDir, opt.name,
-                                  opt.keepCheckpoints)
-                p = save_checkpoint(opt.checkpointDir, opt.name, epoch, state,
-                                    meta={"epoch": epoch, "regime": regime,
-                                          "seed": seed},
-                                    async_write=True)
-                print(f"checkpoint: {p}")
+                # Every rank joins the gather of a sharded bottleneck;
+                # rank 0 alone writes the full, single-device state.
+                with full():
+                    if is_main:
+                        # Prune BEFORE saving: `keep` finished checkpoints
+                        # stay on disk even if the incoming async write
+                        # fails.
+                        prune_checkpoints(opt.checkpointDir, opt.name,
+                                          opt.keepCheckpoints)
+                        p = save_checkpoint(
+                            opt.checkpointDir, opt.name, epoch, state,
+                            meta={"epoch": epoch, "regime": regime,
+                                  "seed": seed},
+                            async_write=True)
+                        print(f"checkpoint: {p}")
     finally:
         # A failure in this teardown (a failed async write, divergence
         # caught at the last flush) is raised after it, and never in place
@@ -493,9 +648,30 @@ def train(opt: Opt, regime: str):
     return state
 
 
+def check_corpus(opt: Opt, arrays, device) -> None:
+    """dataDevice on several ranks: every rank's decoded corpus has one
+    CRC32, or every rank exits naming each rank's value (JAX loop.py
+    :299-329)."""
+    crc = 0
+    for a in arrays:
+        crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+    mine = torch.tensor([crc], dtype=torch.int64, device=device)
+    crcs = [int(c) for c in comm.all_gather(mine)]
+    if len(set(crcs)) != 1:
+        raise SystemExit(
+            f"dataDevice multi-process: per-rank corpus checksums differ "
+            f"({[hex(c) for c in crcs]}) -- DATA_ROOT {opt.DATA_ROOT!r} must "
+            "be one shared corpus visible identically to every process")
+
+
 def main(argv: list[str]):
     regime, rest = split_regime(argv)
-    return train(from_args(rest), regime)
+    opt = from_args(rest)
+    # torchrun's environment: join the world first (NCCL on the card,
+    # gloo for device=cpu); a no-op for one process.
+    distributed.initialize(device=None if opt.device == "cuda"
+                           else opt.device)
+    return train(opt, regime)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,22 @@ weights and BN buffers and the optimizers' moments.
   every D pass takes (ctx, x)), ``noiseGen`` (G takes (ctx, z)),
   ``gradAccum``, ``remat`` and ``useBias`` (conv biases trained by Adam, as
   the JAX package trains them, not zeroed as the reference does).
+* On a mesh (parallel/mesh.py; ``mesh=`` here and in ``init_train_state``)
+  each rank runs the step on its rows (and, on a ('data','seq') mesh, its
+  frames) and its objective is a share of the global loss: each loss term,
+  a mean over the rank's elements, is scaled by ``1/world`` before the
+  backward, so the shares sum to the unsharded loss (every shard has the
+  same size; every term is split over an axis or computed alike on each of
+  its ranks).  The collectives in the nets have their exact adjoints as
+  backward (parallel/comm.py), so after the microbatches each parameter's
+  gradient is summed, in one flat bucket per net and group, over the ranks
+  that hold a copy of it: the whole mesh for a replicated parameter, the
+  data axis for a sharded bottleneck one.  The metrics are the sums of
+  the shares (an all_reduce), the unsharded step's metrics.  A data rank
+  holds its share of each gradAccum microbatch (parallel/distributed.py
+  ``data_rows``), so the microbatches are the unsharded step's; noiseGen's
+  z is drawn for the global batch, each data rank taking its rows.
+  Without a mesh none of this runs.
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ class TrainState:
     opt_g: torch.optim.Optimizer   # torch.optim.Adam, or AdamBf16Moments
     opt_d: torch.optim.Optimizer
     step: int = 0
+    mesh: object = None      # the DeviceMesh the state is sharded on
 
 
 def _optimizers(opt: Opt, gen: nn.Module, disc: nn.Module):
@@ -86,15 +103,47 @@ def _optimizers(opt: Opt, gen: nn.Module, disc: nn.Module):
     return adam(gen.parameters(), g_lr), adam(disc.parameters(), opt.lr)
 
 
-def init_train_state(opt: Opt, regime: str,
-                     gen: torch.Generator) -> TrainState:
+def init_train_state(opt: Opt, regime: str, gen: torch.Generator,
+                     mesh=None) -> TrainState:
     """Networks initialised from ``gen`` (a CPU generator: conv N(0,0.02),
-    BN gamma N(1,0.02)), moved to ``opt.device``, with fresh Adams."""
+    BN gamma N(1,0.02)), moved to ``opt.device``, with fresh Adams.  With
+    ``mesh``: this rank's networks, with the same draws, their bottleneck
+    cut to the rank's shard (parallel/mesh.py ``shard_state``)."""
     device = resolve_device(opt)
-    g, d = build_for_regime(opt, regime, gen)
+    g, d = build_for_regime(opt, regime, gen, mesh)
     g, d = g.to(device), d.to(device)
     opt_g, opt_d = _optimizers(opt, g, d)
-    return TrainState(g, d, opt_g, opt_d)
+    state = TrainState(g, d, opt_g, opt_d, mesh=mesh)
+    if mesh is not None:
+        from video_filler_tpu_torch.parallel.mesh import shard_state
+        shard_state(state, mesh)
+    return state
+
+
+def _reduce_grads(nets, data_group) -> None:
+    """Sum each parameter's gradient over the ranks holding a copy of it:
+    the world for replicated ones, ``data_group`` for the sharded
+    bottleneck ones (flagged ``vf_sharded``); one flat bucket per net and
+    group.  A parameter this rank did not use (noiseGen's ``noise`` conv
+    off the last model rank) contributes zeros."""
+    from video_filler_tpu_torch.parallel import comm
+
+    for net in nets:
+        buckets = {False: [], True: []}
+        for p in net.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            buckets[getattr(p, "vf_sharded", False)].append(p)
+        for sharded, params in buckets.items():
+            if not params:
+                continue
+            flat = torch.cat([p.grad.reshape(-1) for p in params])
+            comm.all_reduce_(flat, data_group if sharded else None)
+            at = 0
+            for p in params:
+                n = p.numel()
+                p.grad.copy_(flat[at:at + n].view_as(p.grad))
+                at += n
 
 
 def check_condition_adv(opt: Opt, regime: str) -> None:
@@ -125,9 +174,12 @@ def _remat_contexts():
     return contextlib.nullcontext(), running_stats_frozen()
 
 
-def make_train_step(opt: Opt, regime: str, with_init: bool = False):
+def make_train_step(opt: Opt, regime: str, with_init: bool = False,
+                    mesh=None):
     """Build ``step(state, batch, init_net=None, noise=None, gen=None) ->
-    metrics`` for a regime.
+    metrics`` for a regime.  ``mesh``: the step of one rank (see the
+    module's docstring); ``batch`` then holds its rows (and frames), and
+    ``noise``, when given, the global batch's.
 
     batch (on the state's device, NHWC float in [-1,1] unless noted):
       center : {'real': (B,fs,fs,nc)}
@@ -174,6 +226,16 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         ring = losses.overlap_l2_weights((half, half), opt.overlapPred, wtl2,
                                          device=device)[None]
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    share = None
+    if mesh is not None:
+        from video_filler_tpu_torch.parallel import comm
+        from video_filler_tpu_torch.parallel.distributed import data_rows
+        from video_filler_tpu_torch.parallel.mesh import coords
+        where = coords(mesh)
+        share = 1.0 / where.world
+        data_group = mesh.get_group("data")
+        seq_group = (mesh.get_group("seq") if where.shard_axis == "seq"
+                     else None)
 
     def apply(net, *args, **kw):
         if not opt.remat:
@@ -235,8 +297,12 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
                 loss_g = loss_g + opt.wtgdl * gdl_val
             err_g_gdl = gdl_val.detach()
 
-        loss_d.backward(inputs=list(disc.parameters()))
-        loss_g.backward(inputs=list(gen.parameters()))
+        if share is None:
+            loss_d.backward(inputs=list(disc.parameters()))
+            loss_g.backward(inputs=list(gen.parameters()))
+        else:   # this rank's shares of the global losses
+            (loss_d * share).backward(inputs=list(disc.parameters()))
+            (loss_g * share).backward(inputs=list(gen.parameters()))
         return {"errD": loss_d.detach(), "errD_real": err_d_real.detach(),
                 "errD_fake": err_d_fake.detach(), "errG": err_g.detach(),
                 "errG_l2": err_g_l2, "errG_gdl": err_g_gdl,
@@ -248,13 +314,26 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
         ctx, d_real, target, l2_w, mask = prepare(batch)
         if with_init:
             with torch.no_grad():
-                fake_init = init_net.eval()(ctx)
+                if share is not None and seq_group is not None:
+                    # netI is replicated: it runs on the whole clip, and
+                    # this rank keeps its frames
+                    t = ctx.shape[1]
+                    fake_init = init_net.eval()(comm.all_gather(
+                        ctx, seq_group, dim=1)).narrow(
+                            1, where.shard_rank * t, t)
+                else:
+                    fake_init = init_net.eval()(ctx)
             ctx = masks.fill_in(ctx, mask, fake_init)
         if opt.noiseGen and noise is None:
             if gen is None:
                 raise ValueError("a noiseGen step takes noise= or gen= (the "
                                  "generator its z is drawn from)")
-            noise = draw_noise(opt, gen, ctx.shape[0], ctx.device)
+            rows = ctx.shape[0] * (where.n_data if share is not None else 1)
+            noise = draw_noise(opt, gen, rows, ctx.device)
+        if share is not None and opt.noiseGen:
+            noise = noise[data_rows(ctx.shape[0] * where.n_data,
+                                    where.n_data, where.data_rank,
+                                    n_micro).to(noise.device)]
         operands = (ctx, d_real, target, l2_w, mask, noise)
         b = ctx.shape[0]
         if b % n_micro != 0:
@@ -279,6 +358,11 @@ def make_train_step(opt: Opt, regime: str, with_init: bool = False):
                 if p.grad is not None:
                     p.grad.mul_(inv)
             total = {k: v * inv for k, v in total.items()}
+        if share is not None:
+            _reduce_grads((gen_net, disc), data_group)
+            vals = torch.stack([total[k] for k in METRIC_KEYS]) * share
+            comm.all_reduce_(vals)
+            total = dict(zip(METRIC_KEYS, vals.unbind()))
         state.opt_g.step()
         state.opt_d.step()
         state.step += 1
@@ -294,7 +378,7 @@ def make_preprocess(opt: Opt, regime: str):
     The random decisions come from ``draws`` when given (the regime's
     ``*_draws`` dict, e.g. the JAX side's in a test), else they are drawn
     from the CPU generator ``gen``."""
-    specs_for_regime(opt, regime)  # raises on what is not ported yet
+    specs_for_regime(opt, regime)  # raises on what the regime refuses
     check_fine_size(opt, regime)
     fs = opt.fineSize
 
@@ -362,6 +446,27 @@ def make_preprocess(opt: Opt, regime: str):
 
     return {"center": center, "video": video, "logo": logo,
             "wholeim": wholeim, "video3d": video3d}[regime]
+
+
+def global_draws(opt: Opt, regime: str, gen: torch.Generator,
+                 local_shape: tuple[int, ...], n_data: int,
+                 data_rank: int) -> dict:
+    """A data rank's rows (``data_rows``) of the preprocess decisions drawn
+    for the global batch (``n_data`` ranks of ``local_shape[0]`` rows), so
+    that a sharded run makes the unsharded run's decisions."""
+    from video_filler_tpu_torch.parallel.distributed import data_rows
+    draw = {"center": center_draws, "video": video_draws,
+            "video3d": video_draws, "logo": logo_draws,
+            "wholeim": wholeim_draws}[regime]
+    n = local_shape[0] * n_data
+    full = draw(opt, gen, (n,) + tuple(local_shape[1:]))
+    mine = data_rows(n, n_data, data_rank, int(opt.gradAccum))
+
+    def rows(d):
+        if isinstance(d, dict):
+            return {k: rows(v) for k, v in d.items()}
+        return d[mine]
+    return rows(full)
 
 
 def center_draws(opt: Opt, gen: torch.Generator,
