@@ -15,6 +15,18 @@ def _np(module) -> dict:
             for k, v in module.state_dict().items()}
 
 
+def _moments(module, optimizer) -> dict:
+    """The Adam first moments of ``module``'s parameters (f32 numpy): after
+    one step (1 - beta1) times the gradient, so linear in it."""
+    return {n: optimizer.state[p]["exp_avg"].detach().float().cpu()
+            .numpy().copy() for n, p in module.named_parameters()}
+
+
+def adam_mu(state) -> dict:
+    return {"gen": _moments(state.gen, state.opt_g),
+            "disc": _moments(state.disc, state.opt_d)}
+
+
 def _mesh(kind: str, n_data: int, n_shard: int):
     from video_filler_tpu_torch.parallel import mesh as mesh_mod
     from video_filler_tpu_torch.parallel import temporal
@@ -28,7 +40,8 @@ def sharded_step(case: dict) -> dict:
     the state loaded from the full state dicts ``gen``/``disc`` (the JAX
     init, converted), this rank's rows (and frames) of the global batch,
     optional global ``noise``.  Returns the metrics, the full G and D
-    after the step, and the local shapes of the sharded tensors."""
+    after the step, their Adam first moments (gathered) and the local
+    shapes of the sharded tensors."""
     from video_filler_tpu_torch.config import Opt
     from video_filler_tpu_torch.parallel import mesh as mesh_mod
     from video_filler_tpu_torch.parallel import temporal
@@ -72,7 +85,8 @@ def sharded_step(case: dict) -> dict:
                if p in state.opt_g.state}
     with mesh_mod.unsharded(state, mesh):
         return {"metrics": metrics, "gen": _np(state.gen),
-                "disc": _np(state.disc), "shapes": shapes,
+                "disc": _np(state.disc), "mu": adam_mu(state),
+                "shapes": shapes,
                 "moments": moments, "step": state.step,
                 "coords": (where.n_data, where.data_rank, where.n_shard,
                            where.shard_rank)}
@@ -88,29 +102,6 @@ def init_net(opt, regime: str, sd: dict):
                           torch.Generator().manual_seed(0))
     gen.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     return gen.eval().requires_grad_(False)
-
-
-def one_process_step(case: dict) -> dict:
-    """The port's unsharded step on the whole batch, in this process (the
-    reference of ``sharded_step`` for options the JAX comparison does not
-    cover); the same inputs as ``sharded_step``."""
-    from video_filler_tpu_torch.config import Opt
-    from video_filler_tpu_torch.train import step as tstep
-    opt = Opt(device="cpu", **case["opt"])
-    regime = case["regime"]
-    state = tstep.init_train_state(opt, regime,
-                                   torch.Generator().manual_seed(0))
-    kw = {}
-    if case.get("noise") is not None:
-        kw["noise"] = torch.from_numpy(case["noise"])
-    if case.get("init") is not None:
-        kw["init_net"] = init_net(opt, regime, case["init"])
-    step = tstep.make_train_step(opt, regime, with_init="init_net" in kw)
-    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
-    metrics = [{k: float(v) for k, v in step(state, batch, **kw).items()}
-               for _ in range(case.get("steps", 1))]
-    return {"metrics": metrics, "gen": _np(state.gen),
-            "disc": _np(state.disc)}
 
 
 def mesh_facts() -> dict:
@@ -197,7 +188,8 @@ def loop_run(args: list, cwd: str, name_dirs: dict | None = None,
              rank_args: dict | None = None) -> dict:
     """``train.loop.main(args)`` from ``cwd`` (or, with ``name_dirs``, from
     the directory named for this rank), with ``rank_args[rank]`` appended;
-    the final step and full G, or the SystemExit message it ended with."""
+    the final step, full G and both nets' Adam first moments, or the
+    SystemExit message it ended with."""
     import torch.distributed as dist
 
     from video_filler_tpu_torch.parallel import mesh as mesh_mod
@@ -209,7 +201,8 @@ def loop_run(args: list, cwd: str, name_dirs: dict | None = None,
     except SystemExit as e:
         return {"exit": str(e)}
     with mesh_mod.unsharded(state, state.mesh):
-        return {"step": state.step, "gen": _np(state.gen)}
+        return {"step": state.step, "gen": _np(state.gen),
+                "mu": adam_mu(state)}
 
 
 def save_then_loop(args: list, dirs: dict, ckpt_opt: dict) -> dict:

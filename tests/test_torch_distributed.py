@@ -3,7 +3,12 @@ distributed.py, launch.py and the loop's multi-process branches): gloo
 worlds of 2 processes on the CPU, each rank running ``train.loop.main``
 (the counterpart of tests/test_distributed.py, whose worlds are 2
 jax.distributed processes).  Loop results after 2 steps are held to atol
-8.1e-3 against one process (two first-step Adam sign flips, as there)."""
+8.1e-3 against one process (two first-step Adam sign flips, as there).
+The gradients are held after one step, as both nets' Adam first moments,
+to 0.1 of each leaf's largest value (test_torch_parallel.py's limit):
+after two, a weight whose tiny first gradient flipped sign has moved by
+2*lr_G and shifts the second gradient by as much as 0.14 of a leaf (on
+the card, tests/gradient_readings.py for the CPU)."""
 
 import os
 import shutil
@@ -15,6 +20,7 @@ import pytest
 import torch
 
 import _torch_workers as workers
+from test_torch_parallel import check_gradients
 from video_filler_tpu.checkpoint import restore_checkpoint as jax_restore
 from video_filler_tpu.config import Opt as JaxOpt
 from video_filler_tpu.train import step as jstep
@@ -111,11 +117,15 @@ def test_process_batch_slice():
 def test_two_rank_training_matches_single(same_images, tmp_path):
     """Two gloo ranks train through the loop: identical replicas, rank 0
     alone writes the checkpoints, rank 1 logs to its own JSONL, and the
-    result equals one process on the same data."""
+    result equals one process on the same data (a one-step run's
+    gradients too)."""
     cwd = str(tmp_path)
-    outs = run_world(2, workers.loop_run,
-                     (_args(same_images, checkpointEvery=1, name="mh"), cwd),
-                     device="cpu", timeout_s=WORLD_S)
+    runs = run_world(2, workers.many, ([
+        ("loop_run", (_args(same_images, checkpointEvery=1, name="mh"),
+                      cwd)),
+        ("loop_run", (_args(same_images, niter=1, name="mh1"), cwd)),
+    ],), device="cpu", timeout_s=WORLD_S)
+    outs = [r[0] for r in runs]
     assert [o["step"] for o in outs] == [2, 2]
     for k, v in outs[0]["gen"].items():
         np.testing.assert_array_equal(v, outs[1]["gen"][k], err_msg=k)
@@ -127,6 +137,9 @@ def test_two_rank_training_matches_single(same_images, tmp_path):
     got = _flat(outs[0]["gen"])
     want = _flat({k: v.numpy() for k, v in ref.gen.state_dict().items()})
     np.testing.assert_allclose(got, want, atol=LOOP_ATOL)
+    one = _single(cwd, _args(same_images, niter=1, name="mh1_single"))
+    check_gradients("the one-process run", runs[0][1]["mu"],
+                    workers.adam_mu(one))
 
 
 def test_tp_checkpoint_loads_in_one_rank_and_in_jax(same_images, tmp_path):
@@ -187,11 +200,16 @@ def distinct_images(tmp_path_factory):
 def test_two_rank_data_device_matches_single(distinct_images, tmp_path):
     """dataDevice over two ranks: each loads the corpus, they agree on its
     checksum, and each takes its rows of the global batch, a function of
-    (seed, step): the run equals one process on distinct images."""
+    (seed, step): the run equals one process on distinct images (a
+    one-step run's gradients too)."""
     cwd = str(tmp_path)
     args = _args(distinct_images, dataDevice=1, name="dd")
-    outs = run_world(2, workers.loop_run, (args, cwd), device="cpu",
-                     timeout_s=WORLD_S)
+    runs = run_world(2, workers.many, ([
+        ("loop_run", (args, cwd)),
+        ("loop_run", (_args(distinct_images, dataDevice=1, niter=1,
+                            name="dd1"), cwd)),
+    ],), device="cpu", timeout_s=WORLD_S)
+    outs = [r[0] for r in runs]
     for k, v in outs[0]["gen"].items():
         np.testing.assert_array_equal(v, outs[1]["gen"][k], err_msg=k)
     ref = _single(cwd, _args(distinct_images, dataDevice=1,
@@ -200,6 +218,10 @@ def test_two_rank_data_device_matches_single(distinct_images, tmp_path):
         _flat(outs[0]["gen"]),
         _flat({k: v.numpy() for k, v in ref.gen.state_dict().items()}),
         atol=LOOP_ATOL)
+    one = _single(cwd, _args(distinct_images, dataDevice=1, niter=1,
+                             name="dd1_single"))
+    check_gradients("the one-process run", runs[0][1]["mu"],
+                    workers.adam_mu(one))
 
 
 def test_data_device_corpus_checksums_must_agree(distinct_images, tmp_path):
@@ -237,11 +259,15 @@ def test_mesh_plan_exits_naming_the_sizes():
                                       ("hang", TimeoutError)])
 def test_a_dead_or_hung_rank_fails_within_the_timeout(mode, exc):
     """A rank that dies, or hangs while its peer waits in a collective,
-    fails run_world within its timeout instead of hanging the caller."""
+    fails run_world within its timeout instead of hanging the caller.  The
+    dead rank's world gets a time limit its two processes can start in on
+    a loaded host (a rank takes seconds to import torch and join), so that
+    its death, not the limit, ends it."""
+    timeout_s = 60 if mode == "die" else 8
     t0 = time.monotonic()
     with pytest.raises(exc, match="rank 1|killed after"):
         run_world(2, workers.die_or_hang, (mode,), device="cpu",
-                  timeout_s=8)
+                  timeout_s=timeout_s)
     assert time.monotonic() - t0 < 30
 
 

@@ -11,6 +11,19 @@ atol 1e-5; parameters after the first Adam step atol 4.1e-3 (about
 lr*sign(g): a gradient near 0 whose sign flips under another reduction
 order moves a weight by 2*lr_G, tests/test_parallel.py:47-52); BN running
 statistics rtol 1e-4 / atol 1e-5.  The replicas must be bitwise equal.
+
+The metrics are forward values and a first Adam step moves a weight by
+about lr whatever its gradient's size, so neither sees a wrong gradient
+reduction.  The gradients do: each net's Adam first moments after the
+step, (1 - beta1) times the reduced gradient, are held to JAX's leaf by
+leaf, the largest difference within 0.1 of the leaf's largest value.  A
+dropped 1/world share, or a bucket summed over the wrong group, moves a
+gradient by its own size or more (tests/gradient_readings.py reads 1.0
+to 3.0), while two f32 steps that are both right differ by up to 3.3e-2
+on the center batch, a discrete near-tie (ROADMAP §C): JAX's f32 step is
+3.3e-2 of a G leaf off the port's float64 step, and the port's own f32
+step 1.1e-5 with 8 threads but 8.8e-3 with one.  Every other case agrees
+within 3.5e-5.
 """
 
 import jax
@@ -34,34 +47,61 @@ V3D = dict(nef=8, ngf=8, ndf=8, nBottleneck=64, predLen=2, batchSize=8,
            computeDtype="float32")
 METRIC_TOL = dict(rtol=1e-4, atol=1e-5)
 PARAM_ATOL = 4.1e-3
+GRAD_LIMIT = 0.1
 BN_TOL = dict(rtol=1e-4, atol=1e-5)
 WORLD_S = 120
 
 
-def _jax_case(regime, kw, batch, seed=2):
-    """(JAX init as full port state dicts, JAX metrics and new state, the
-    global noise the JAX step drew)."""
+def _jax_mu(opt_state) -> dict:
+    """The first moments of a JAX optimizer state (optax's or the bf16
+    one's) as a port state dict, in f32."""
+    mu = opt_state["mu"] if isinstance(opt_state, dict) else opt_state[0].mu
+    mu = jax.tree.map(lambda x: np.asarray(x, np.float32), mu)
+    return {k: v.numpy() for k, v in convert.tree_to_state_dict(mu).items()}
+
+
+def _jax_case(regime, kw, batch, seed=2, with_init=False):
+    """(JAX init as full port state dicts, JAX metrics, new state and
+    first moments, the global noise the JAX step drew); ``with_init``:
+    the step's initializer is the init's G, kept as ``init``."""
     jopt = JaxOpt(**kw)
     state = jstep.init_train_state(jax.random.PRNGKey(0), jopt, regime)
     key = jax.random.PRNGKey(seed)
-    new, metrics = jax.jit(jstep.make_train_step(jopt, regime))(
-        state, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    extra = ((state.params_g, state.state_g),) if with_init else ()
+    new, metrics = jax.jit(jstep.make_train_step(
+        jopt, regime, with_init=with_init))(
+            state, {k: jnp.asarray(v) for k, v in batch.items()}, key, *extra)
     sd_g, sd_d = convert.from_jax(state.params_g, state.state_g,
                                   state.params_d, state.state_d)
     noise = None
     if jopt.noiseGen:
         noise = np.array(jstep._draw_noise(jax.random.split(key)[0], jopt,
                                            jopt.batchSize))
-    return {"gen": {k: v.numpy() for k, v in sd_g.items()},
-            "disc": {k: v.numpy() for k, v in sd_d.items()},
+    gen = {k: v.numpy() for k, v in sd_g.items()}
+    return {"opt": kw, "regime": regime, "batch": batch,
+            "gen": gen, "disc": {k: v.numpy() for k, v in sd_d.items()},
             "metrics": {k: float(v) for k, v in metrics.items()},
-            "new": new, "noise": noise}
+            "new": new, "noise": noise, "init": gen if with_init else None,
+            "mu": {"gen": _jax_mu(new.opt_g), "disc": _jax_mu(new.opt_d)}}
 
 
 def _case(ref, regime, kw, batch, n_data, n_shard, kind="model"):
     return {"opt": kw, "regime": regime, "n_data": n_data,
             "n_shard": n_shard, "kind": kind, "batch": batch,
-            "gen": ref["gen"], "disc": ref["disc"], "noise": ref["noise"]}
+            "gen": ref["gen"], "disc": ref["disc"], "noise": ref["noise"],
+            "init": ref["init"]}
+
+
+def check_gradients(label, got_mu, ref_mu, limit=GRAD_LIMIT):
+    """Each net's Adam first moments, leaf by leaf: the largest difference
+    over the leaf's largest value at most ``limit``."""
+    for net in ("gen", "disc"):
+        assert sorted(got_mu[net]) == sorted(ref_mu[net]), net
+        for k, b in ref_mu[net].items():
+            rel = np.abs(got_mu[net][k] - b).max() / max(np.abs(b).max(),
+                                                         1e-30)
+            assert rel <= limit, (f"{net} {k}: gradient {rel:.2e} of its "
+                                  f"scale off {label} (limit {limit:g})")
 
 
 def check_against_jax(outs, ref):
@@ -75,6 +115,7 @@ def check_against_jax(outs, ref):
     for k, v in ref["metrics"].items():
         np.testing.assert_allclose(got["metrics"][0][k], v, err_msg=k,
                                    **METRIC_TOL)
+    check_gradients("the JAX step", got["mu"], ref["mu"])
     new = ref["new"]
     for net, params, stats in (("gen", new.params_g, new.state_g),
                                ("disc", new.params_d, new.state_d)):
@@ -132,13 +173,12 @@ OPTIONS = dict(TINY, overlapPred=4, conditionAdv=True, gradAccum=2,
 
 
 @pytest.fixture(scope="module")
-def options_case(center):
-    return {"opt": OPTIONS, "regime": "center", "n_data": 1, "n_shard": 2,
-            "batch": center[0]}
+def options_ref(center):
+    return _jax_case("center", OPTIONS, center[0])
 
 
 @pytest.fixture(scope="module")
-def world2(center, noise_center, bn_inputs, options_case):
+def world2(center, noise_center, bn_inputs, options_ref):
     """One gloo world of 2: DP-2 center, TP-2 center noiseGen, global BN,
     TP-2 with the other step options."""
     batch, ref = center
@@ -147,7 +187,8 @@ def world2(center, noise_center, bn_inputs, options_case):
         ("sharded_step", (_case(ref, "center", TINY, batch, 2, 1),)),
         ("sharded_step", (_case(nref, "center", kw, nbatch, 1, 2),)),
         ("global_bn", bn_inputs),
-        ("sharded_step", (options_case,)),
+        ("sharded_step", (_case(options_ref, "center", OPTIONS, batch, 1,
+                                2),)),
     ],), device="cpu", timeout_s=WORLD_S)
 
 
@@ -299,22 +340,10 @@ def test_global_batch_norm_equals_one_process(world2, bn_inputs):
         np.testing.assert_allclose(o["var"], rv.numpy(), **tol)
 
 
-def test_tp_composes_with_the_other_step_options(world2, options_case):
+def test_tp_composes_with_the_other_step_options(world2, options_ref):
     """conditionAdv, gradAccum, remat and adamMomentsBf16 together under
-    TP-2 equal the port's one-process step with the same
-    options (which tests/test_torch_step_options.py holds against the JAX
-    step): metrics, parameters, BN statistics; replicas bitwise equal."""
+    TP-2 equal the JAX step with the same options: metrics, gradients (the
+    bf16 moments), parameters, BN statistics; replicas bitwise equal."""
     outs = [r[3] for r in world2]
-    ref = workers.one_process_step(options_case)
-    for o in outs[1:]:
-        for net in ("gen", "disc"):
-            for k, v in outs[0][net].items():
-                np.testing.assert_array_equal(v, o[net][k], err_msg=k)
-    for k, v in ref["metrics"][0].items():
-        np.testing.assert_allclose(outs[0]["metrics"][0][k], v, err_msg=k,
-                                   **METRIC_TOL)
     assert all(len(o["moments"]) for o in outs)     # bf16 moments, sharded
-    for net in ("gen", "disc"):
-        for k, v in ref[net].items():
-            tol = BN_TOL if "running_" in k else dict(atol=PARAM_ATOL)
-            np.testing.assert_allclose(outs[0][net][k], v, err_msg=k, **tol)
+    check_against_jax(outs, options_ref)

@@ -16,9 +16,13 @@ hold it completes it (train/step.py).
 
 Backends: NCCL for CUDA tensors, gloo for CPU tensors, and gloo with CUDA
 tensors for two ranks sharing one card (NCCL refuses two ranks on one
-device).  Under gloo the wrapper copies CUDA tensors through pinned host
-buffers for the ops in ``GLOO_HOST_OPS`` and counts each such call in
-``HOST_STAGED``; no compute moves to the CPU.
+device: "Duplicate GPU detected", parallel/probe.py).  Gloo runs
+all_reduce, broadcast, all_gather and reduce_scatter on CUDA tensors
+itself, but its point-to-point send/recv of a CUDA tensor kills the rank
+(gloo::IoException, parallel/probe.py on an H100 with torch 2.11), so
+``send_recv`` alone copies CUDA tensors through pinned host buffers under
+gloo and counts each such call in ``HOST_STAGED``.  No compute moves to
+the CPU.
 """
 
 from __future__ import annotations
@@ -26,25 +30,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-# Collectives that go through pinned host buffers under gloo with CUDA
-# tensors: all of them.  Gloo's own CUDA paths are not safe to rely on: on
-# the H100 machine (torch 2.11.0+cu128) a probe of the raw ops on CUDA
-# tensors killed a rank (gloo::IoException, writev: Bad address).
-GLOO_HOST_OPS = frozenset({"all_reduce", "broadcast", "all_gather",
-                           "reduce_scatter", "send_recv"})
-
-# Host-staged calls by op, since the process started.
-HOST_STAGED = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-               "send_recv": 0, "broadcast": 0}
-
-
-def _staged(op: str, t: torch.Tensor, group) -> bool:
-    if not t.is_cuda or op not in GLOO_HOST_OPS:
-        return False
-    if dist.get_backend(group) != "gloo":
-        return False
-    HOST_STAGED[op] += 1
-    return True
+# send_recv calls staged through host buffers, since the process started.
+HOST_STAGED = {"send_recv": 0}
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -54,33 +41,15 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-# all_gather_single / reduce_scatter_single are the newer names (the old
-# ones warn on newer PyTorch); the same signatures.
-_gather_into = getattr(dist, "all_gather_single", None) \
-    or dist.all_gather_into_tensor
-_scatter_into = getattr(dist, "reduce_scatter_single", None) \
-    or dist.reduce_scatter_tensor
-
-
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns it."""
-    if _staged("all_reduce", t, group):
-        h = _host(t)
-        dist.all_reduce(h, group=group)
-        t.copy_(h)
-    else:
-        dist.all_reduce(t, group=group)
+    dist.all_reduce(t, group=group)
     return t
 
 
 def broadcast_(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     """``t`` from global rank ``src`` on every rank of ``group``, in place."""
-    if _staged("broadcast", t, group):
-        h = _host(t)
-        dist.broadcast(h, src, group=group)
-        t.copy_(h)
-    else:
-        dist.broadcast(t, src, group=group)
+    dist.broadcast(t, src, group=group)
     return t
 
 
@@ -89,16 +58,9 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     order."""
     n = dist.get_world_size(group)
     x = t.movedim(dim, 0).contiguous()
-    if _staged("all_gather", x, group):
-        h = _host(x)
-        out = torch.empty((n * h.shape[0],) + tuple(h.shape[1:]),
-                          dtype=h.dtype)
-        _gather_into(out, h, group=group)
-        out = out.to(t.device)
-    else:
-        out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        _gather_into(out, x, group=group)
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
 
@@ -110,15 +72,9 @@ def reduce_scatter(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of size {x.shape[0]} "
                          f"does not split over {n} ranks")
-    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
-    if _staged("reduce_scatter", x, group):
-        h = _host(x)
-        out = torch.empty(shape, dtype=h.dtype)
-        _scatter_into(out, h, group=group)
-        out = out.to(t.device)
-    else:
-        out = torch.empty(shape, dtype=x.dtype, device=x.device)
-        _scatter_into(out, x, group=group)
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]),
+                      dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, x, group=group)
     return out.movedim(0, dim)
 
 
@@ -126,11 +82,14 @@ def send_recv(sends: list[tuple[torch.Tensor, int]],
               recvs: list[tuple[torch.Tensor, int]], group=None) -> None:
     """Point-to-point exchange in one batch: each ``(tensor, peer)`` of
     ``sends`` goes to the global rank ``peer``; each buffer of ``recvs`` is
-    filled from its peer, in place."""
+    filled from its peer, in place.  Under gloo, CUDA tensors go through
+    pinned host buffers."""
     if not sends and not recvs:
         return
-    probe = (sends or recvs)[0][0]
-    staged = _staged("send_recv", probe, group)
+    staged = (sends or recvs)[0][0].is_cuda and \
+        dist.get_backend(group) == "gloo"
+    if staged:
+        HOST_STAGED["send_recv"] += 1
     ops, back = [], []
     for t, peer in sends:
         ops.append(dist.P2POp(dist.isend, _host(t) if staged

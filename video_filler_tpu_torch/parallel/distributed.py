@@ -109,19 +109,19 @@ def data_rows(global_batch: int, n_data: int, data_rank: int,
     """The global batch's rows that data rank ``data_rank`` of ``n_data``
     holds, as an index tensor: its equal share of each of the ``n_micro``
     microbatches of gradAccum (microbatch i is global rows [i*m, (i+1)*m)),
-    so the sharded step's microbatches are the one-device step's.  With
-    one microbatch, the contiguous ``process_batch_slice``."""
-    if global_batch % (n_data * n_micro):
+    so the sharded step's microbatches are the one-device step's: the
+    ``process_batch_slice`` of each microbatch."""
+    if global_batch % n_micro:
         raise ValueError(f"global batch {global_batch} must divide by "
-                         f"{n_data} data ranks x {n_micro} microbatches")
+                         f"{n_micro} microbatches")
     m = global_batch // n_micro
-    per = m // n_data
-    return torch.cat([torch.arange(i * m + data_rank * per,
-                                   i * m + (data_rank + 1) * per)
+    start, per = process_batch_slice(m, n_data, data_rank)
+    return torch.cat([torch.arange(i * m + start, i * m + start + per)
                       for i in range(n_micro)])
 
 
 def data_axis_size(mesh) -> int:
+    """The number of data ranks of ``mesh`` (its first axis)."""
     return mesh.size(mesh.mesh_dim_names.index("data"))
 
 

@@ -42,7 +42,10 @@ import torch.distributed as dist
 from torch import nn
 
 from video_filler_tpu_torch.parallel import comm
-from video_filler_tpu_torch.parallel.distributed import gather_pytree
+from video_filler_tpu_torch.parallel.distributed import (
+    data_axis_size,
+    gather_pytree,
+)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -109,8 +112,8 @@ class Coords:
 
 def coords(mesh) -> Coords:
     second = mesh.mesh_dim_names[1]
-    return Coords(mesh.size(0), mesh.get_local_rank(DATA_AXIS), second,
-                  mesh.size(1), mesh.get_local_rank(second))
+    return Coords(data_axis_size(mesh), mesh.get_local_rank(DATA_AXIS),
+                  second, mesh.size(1), mesh.get_local_rank(second))
 
 
 def is_sharded(mesh) -> bool:
