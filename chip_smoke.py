@@ -144,9 +144,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  at batch 64 (eval/export_pt2.py), reloaded, equal to the
                  eager G and within one uint8 level of the server
                  function; exported and eager ms per batch.
+  9. ledger   -- the learning-dynamics ledger (video_filler_tpu_torch/
+                 ledger/) on the held-out preset's center run at full width
+                 (bf16, batch 64, a 256-texture corpus, split 80: 3 steps
+                 per epoch): (a) ``run_ledger(save=False)`` for 300 steps,
+                 the live G scored in place (4 batches of 64 per split) at
+                 init, every 40 epochs through the loop's ``epoch_hook``
+                 and at the end: the rows in the JAX ledger's schema and
+                 tags, a flush after every row, no checkpoint written, the
+                 held-out hole-L2 below the init row's; (b)
+                 ``run_ledger(save=True)`` for 2 epochs: init, mid and
+                 final checkpoints written, each scored from its file;
+                 (c) each loss kernel launched once per step in each
+                 direction in (a) and in (b), all on the row path.
 Then one JSON line of the kernels' numbers (at the video geometry, and by
-geometry under "geometries"; launches per rank of phase 8's runs under
-"launches_parallel"), and as the last line
+geometry under "geometries"; "launches" counts phases 5 and 9, apart
+under "launches_main_path" and "launches_ledger"; launches per rank of
+phase 8's runs under "launches_parallel"), and as the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -196,8 +210,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2093,6 +2110,145 @@ def parallel_phase(torch, np, fl, Opt, from_args, split_regime, step_mod,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the learning-dynamics ledger (video_filler_tpu_torch/ledger/).
+# ---------------------------------------------------------------------------
+
+LEDGER_STEPS = 300      # (a): the save-free ledger's steps
+LEDGER_EVERY = 40       # (a): a scored point every 40 epochs (120 steps)
+LEDGER_BATCHES = 4      # eval batches of 64 per scored point and split
+# the JAX ledger's row schema (scripts/ledger_common.py)
+LEDGER_ROW_KEYS = ["regime", "ckpt", "evalSplit", "l2", "psnr_db", "ssim",
+                   "hole_l2", "l2_std", "psnr_db_std", "ssim_std",
+                   "hole_l2_std", "n_batches", "batchSize"]
+
+
+def _ledger_run(fl, label, fn, steps):
+    """Run ``fn`` with the launch counts set to 0 just before; the loss
+    kernels must launch once per step in each direction, all on the row
+    path.  Returns (seconds, launches)."""
+    for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    fn()
+    seconds = time.perf_counter() - t0
+    launches = {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
+    if launches["fwd"] != steps or launches["bwd"] != steps:
+        fail(f"{label}: loss kernels launched {launches} times in {steps} "
+             f"steps, not once per step in each direction")
+    if launches["generic"] or launches["row"] != 2 * steps:
+        fail(f"{label}: loss kernels launched {launches}: every launch must "
+             f"take the row path")
+    return seconds, launches
+
+
+def _check_rows(label, rows, tags, splits):
+    want = [(t, s) for t in tags for s in splits]
+    got = [(r["ckpt"], r["evalSplit"]) for r in rows]
+    if got != want:
+        fail(f"{label}: rows {got}, expected {want}")
+    for r in rows:
+        if list(r) != LEDGER_ROW_KEYS:
+            fail(f"{label}: row keys {list(r)} are not the JAX ledger's "
+                 f"{LEDGER_ROW_KEYS}")
+        bad = [k for k in LEDGER_ROW_KEYS[3:] if not math.isfinite(r[k])]
+        if bad:
+            fail(f"{label}: non-finite {bad} in row {r}")
+    for t in tags:
+        print(f"  {t}: hole_l2 train/test "
+              + " / ".join(f"{r['hole_l2']:.4f}" for r in rows
+                           if r["ckpt"] == t)
+              + ", psnr_db "
+              + " / ".join(f"{r['psnr_db']:.2f}" for r in rows
+                           if r["ckpt"] == t))
+
+
+def ledger_phase(fl, tmp, smi, device="cuda", **over):
+    """Phase 9: the held-out preset's center run (full width, bf16, on a
+    256-texture corpus, split 80: 3 steps per epoch) through
+    ``ledger.common.run_ledger``: (a) save-free for LEDGER_STEPS steps,
+    scored in place at init, every LEDGER_EVERY epochs and at the end; (b)
+    with checkpoints for 2 epochs.  Returns the launches of each.
+    ``over``: options over the preset's (a CPU dry run's widths)."""
+    from video_filler_tpu_torch.config import Opt
+    from video_filler_tpu_torch.data import synthetic
+    from video_filler_tpu_torch.ledger import common, presets
+    work = os.path.join(tmp, "ledger")
+    os.makedirs(work)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        fn, args, kw = presets.PRESETS["heldout"].corpora[0]
+        getattr(synthetic, fn)(*args, **kw)
+        print(f"{fn}{args} {kw}: {time.perf_counter() - t0:.1f} s")
+        run = presets.PRESETS["heldout"].runs["center"]
+        base = Opt(**{**run.opt, "device": device, **over})
+        spe = 3
+        launches = {}
+
+        rows, flushed = [], []
+        opt_a = base.replace(name="ledger_a", checkpointEvery=9999)
+        seconds, launches["save_free"] = _ledger_run(
+            fl, "(a) save-free ledger", lambda: common.run_ledger(
+                opt_a, run.regime, run.splits, rows, mid_tag="",
+                final_tag=f"step{LEDGER_STEPS}", max_steps=LEDGER_STEPS,
+                n_batches=LEDGER_BATCHES, save=False,
+                score_every=LEDGER_EVERY,
+                flush=lambda: flushed.append(len(rows))),
+            LEDGER_STEPS)
+        tags = ["init", *(f"step{e * spe}" for e in range(
+            LEDGER_EVERY, LEDGER_STEPS // spe, LEDGER_EVERY)),
+            f"step{LEDGER_STEPS}"]
+        print(f"(a) save-free ledger, {LEDGER_STEPS} steps, scored at "
+              f"{tags} on {run.splits} ({LEDGER_BATCHES} batches of 64): "
+              f"{seconds:.1f} s; launches {launches['save_free']}")
+        _check_rows("(a)", rows, tags, run.splits)
+        if flushed != list(range(1, len(rows) + 1)):
+            fail(f"(a): flush ran after rows {flushed}, not after each of "
+                 f"{len(rows)}")
+        left = [f for f in (os.listdir("checkpoints")
+                            if os.path.isdir("checkpoints") else [])
+                if f.startswith("ledger_a")]
+        if left:
+            fail(f"(a): the save-free ledger wrote {left}")
+        init_t, last_t = (next(r["hole_l2"] for r in rows
+                               if r["ckpt"] == t and r["evalSplit"] == "test")
+                          for t in (tags[0], tags[-1]))
+        if not last_t < init_t:
+            fail(f"(a): held-out hole_l2 {last_t} at {tags[-1]} is not "
+                 f"below the init row's {init_t}")
+        print(f"(a) flush after each of the {len(rows)} rows; no "
+              f"checkpoint; held-out hole_l2 {init_t:.4f} -> {last_t:.4f}")
+
+        rows_b = []
+        opt_b = base.replace(name="ledger_b", niter=2, checkpointEvery=1)
+        seconds, launches["saving"] = _ledger_run(
+            fl, "(b) saving ledger", lambda: common.run_ledger(
+                opt_b, run.regime, run.splits, rows_b,
+                mid_tag=f"step{spe}", final_tag=f"step{2 * spe}",
+                n_batches=LEDGER_BATCHES), 2 * spe)
+        files = sorted(f for f in os.listdir("checkpoints")
+                       if f.startswith("ledger_b"))
+        want = ["ledger_b_1_state.npz", "ledger_b_2_state.npz",
+                "ledger_b_init_0_state.npz"]
+        if files != want:
+            fail(f"(b): checkpoints {files}, expected {want}")
+        mb = sum(os.path.getsize(os.path.join("checkpoints", f))
+                 for f in files) / 1e6
+        print(f"(b) saving ledger, 2 epochs ({2 * spe} steps): {seconds:.1f} "
+              f"s, checkpoints {files} ({mb:.0f} MB), each scored on "
+              f"{run.splits}; launches {launches['saving']}")
+        _check_rows("(b)", rows_b, ["init", f"step{spe}", f"step{2 * spe}"],
+                    run.splits)
+    finally:
+        os.chdir(cwd)
+    print(f"(c) loss-kernel launches: {launches} (once per step in each "
+          f"direction, all row) on {smi}")
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -2185,7 +2341,15 @@ def main() -> None:
         par_launches = parallel_phase(torch, np, fl, Opt, from_args,
                                       split_regime, step_mod, loop, run, tmp,
                                       smi_line)
+        gc.collect()
+        torch.cuda.empty_cache()
 
+        phase("9 ledger")
+        t0 = time.perf_counter()
+        ledger_launches = ledger_phase(fl, tmp, smi_line)
+        print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    print(f"every phase passed in {time.perf_counter() - T0:.1f} s")
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
     ref = "video_filler_tpu/ops/pallas/fused_loss.py"
     main_geom = knum["video bf16"]
@@ -2202,7 +2366,11 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": f"fused_weighted_mse_{k}", "route": "cuda", "source": rel,
          "replaces": f"{ref}:{line}", **numbers(main_geom, k),
-         "launches": run["launches"][k],
+         "launches": run["launches"][k]
+         + sum(n[k] for n in ledger_launches.values()),
+         "launches_main_path": run["launches"][k],
+         "launches_ledger": {name: n[k]
+                             for name, n in ledger_launches.items()},
          "launches_video3d": run["launches_video3d"][k],
          "launches_parallel": {
              name: {rank: n[k] for rank, n in ranks.items()}

@@ -205,6 +205,32 @@ def loop_run(args: list, cwd: str, name_dirs: dict | None = None,
                 "mu": adam_mu(state)}
 
 
+def hooked_train(args: list, cwd: str) -> dict:
+    """``train.loop.train`` from ``cwd`` with an ``epoch_hook`` that sums
+    the step over the world (a collective: every rank must reach it),
+    stdout captured: the hook's (epoch, step, world sum) and what this
+    rank printed."""
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from video_filler_tpu_torch.config import from_args, split_regime
+    from video_filler_tpu_torch.train import loop
+    os.chdir(cwd)
+    seen = []
+
+    def hook(epoch, state):
+        t = torch.tensor([state.step], dtype=torch.int64)
+        dist.all_reduce(t)
+        seen.append((epoch, state.step, int(t.item())))
+    regime, rest = split_regime(args)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        loop.train(from_args(rest), regime, epoch_hook=hook)
+    return {"seen": seen, "out": out.getvalue()}
+
+
 def save_then_loop(args: list, dirs: dict, ckpt_opt: dict) -> dict:
     """Rank 0 alone writes a checkpoint into its directory, then every
     rank runs the loop from its own directory (the resume-desync case)."""

@@ -11,6 +11,7 @@ after two, a weight whose tiny first gradient flipped sign has moved by
 the card, tests/gradient_readings.py for the CPU)."""
 
 import os
+import pathlib
 import shutil
 import time
 
@@ -114,17 +115,27 @@ def test_process_batch_slice():
     assert distributed.data_rows(8, 2, 1).tolist() == [4, 5, 6, 7]
 
 
-def test_two_rank_training_matches_single(same_images, tmp_path):
-    """Two gloo ranks train through the loop: identical replicas, rank 0
-    alone writes the checkpoints, rank 1 logs to its own JSONL, and the
-    result equals one process on the same data (a one-step run's
-    gradients too)."""
-    cwd = str(tmp_path)
+@pytest.fixture(scope="module")
+def two_rank_world(same_images, tmp_path_factory):
+    """One world of two gloo ranks: the loop with checkpoints, a one-step
+    run, and a run with an epoch hook; (the ranks' results, the cwd)."""
+    cwd = str(tmp_path_factory.mktemp("mh"))
     runs = run_world(2, workers.many, ([
         ("loop_run", (_args(same_images, checkpointEvery=1, name="mh"),
                       cwd)),
         ("loop_run", (_args(same_images, niter=1, name="mh1"), cwd)),
+        ("hooked_train", (_args(same_images, name="hk"), cwd)),
     ],), device="cpu", timeout_s=WORLD_S)
+    return runs, cwd
+
+
+def test_two_rank_training_matches_single(same_images, two_rank_world):
+    """Two gloo ranks train through the loop: identical replicas, rank 0
+    alone writes the checkpoints, rank 1 logs to its own JSONL, and the
+    result equals one process on the same data (a one-step run's
+    gradients too)."""
+    runs, cwd = two_rank_world
+    tmp_path = pathlib.Path(cwd)
     outs = [r[0] for r in runs]
     assert [o["step"] for o in outs] == [2, 2]
     for k, v in outs[0]["gen"].items():
@@ -140,6 +151,20 @@ def test_two_rank_training_matches_single(same_images, tmp_path):
     one = _single(cwd, _args(same_images, niter=1, name="mh1_single"))
     check_gradients("the one-process run", runs[0][1]["mu"],
                     workers.adam_mu(one))
+
+
+def test_epoch_hook_runs_on_every_rank_and_only_rank_0_prints(
+        two_rank_world):
+    """``train(epoch_hook=)`` on two ranks: the hook runs at each epoch
+    boundary on both (its all_reduce returns, so both reached it), with
+    the same step; rank 0 prints the loop's lines, rank 1 nothing."""
+    runs, _ = two_rank_world
+    hooked = [r[2] for r in runs]
+    for h in hooked:
+        assert h["seen"] == [(1, 1, 2), (2, 2, 4)], h["seen"]
+    assert "Seed: 222" in hooked[0]["out"]
+    assert "End of epoch 2 / 2" in hooked[0]["out"]
+    assert hooked[1]["out"] == ""
 
 
 def test_tp_checkpoint_loads_in_one_rank_and_in_jax(same_images, tmp_path):

@@ -31,9 +31,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "video_filler_tpu_torch")
 
 
+# jax, the JAX package, and the JAX package's scripts/ (the ledgers'
+# shared module among them)
+FORBIDDEN = ("jax", "video_filler_tpu", "scripts", "ledger_common")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "video_filler_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def _port_sources():
@@ -63,7 +67,8 @@ import importlib, importlib.abc, pkgutil, sys
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "video_filler_tpu"):
+        if name.split(".")[0] in ("jax", "video_filler_tpu", "scripts",
+                                  "ledger_common"):
             raise ImportError(f"the port imported {name}")
         return None
 
@@ -73,7 +78,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
          if not m.name.endswith("__main__")]
 for name in names:
     importlib.import_module(name)
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "video_filler_tpu")]
+loaded = [m for m in sys.modules if m.split(".")[0] in
+          ("jax", "video_filler_tpu", "scripts", "ledger_common")]
 assert not loaded, loaded
 print(" ".join(names))
 """
@@ -81,7 +87,9 @@ print(" ".join(names))
 # Modules the walk must reach: the copies of the JAX package's host
 # modules that import no JAX (t7, dashboard, native) and the port's own.
 NEW_MODULES = ["checkpoint.t7", "utils.dashboard", "data.native",
-               "data.device_data", "eval.export"]
+               "data.device_data", "eval.export", "ledger.common",
+               "ledger.presets", "ledger.keepbest", "ledger.rescore",
+               "ledger.compare"]
 
 
 def test_every_port_module_imports_with_the_jax_package_refused():

@@ -11,6 +11,8 @@ The JAX package stays the reference; this package mirrors its module names:
   train/       the GAN train step of every 2-D regime, the epoch driver + CLI
   data/        indexes, host decode, samplers, prefetch, fixtures
   utils/       PNG/GIF writers, the JSONL metrics logger, the HTTP handler
+  ledger/      the learning-dynamics ledgers of the JAX package's scripts/
+               (python -m video_filler_tpu_torch.ledger <preset>)
   entry.py     the flagship video generator, ready to call
 
 It imports torch and nothing of the JAX package.

@@ -228,8 +228,8 @@ class _StepProfiler:
     the loop's thread.  CPU activity always, CUDA when the step runs on the
     card; one Chrome trace under ``profileDir``."""
 
-    def __init__(self, opt: Opt, device: torch.device):
-        self.opt, self.device = opt, device
+    def __init__(self, opt: Opt, device: torch.device, quiet: bool = False):
+        self.opt, self.device, self.quiet = opt, device, quiet
         self.prof = None
         self.first = 0          # the global step the trace starts at
         self.done = opt.profileSteps <= 0
@@ -261,7 +261,8 @@ class _StepProfiler:
         path = os.path.join(self.opt.profileDir,
                             f"{self.opt.name}_step{self.first}.pt.trace.json")
         self.prof.export_chrome_trace(path)
-        print(f"profiler trace: {path}")
+        if not self.quiet:
+            print(f"profiler trace: {path}")
 
 
 def generator_input(opt: Opt, regime: str, batch) -> torch.Tensor:
@@ -295,8 +296,22 @@ def _display_dump(opt: Opt, regime: str, batch, fake, out_dir: str,
                         img.float().cpu().numpy()[..., :nc])
 
 
-def train(opt: Opt, regime: str):
-    """Run the training loop; returns the final TrainState."""
+def train(opt: Opt, regime: str, max_steps: int | None = None,
+          quiet: bool = False, epoch_hook=None):
+    """Run the training loop; returns the final TrainState.
+
+    ``max_steps`` ends the run after that many optimizer steps of this call
+    (a step under gradAccum is one, whatever its microbatches), at the
+    step's end: a stop inside an epoch skips that epoch's log, hook and
+    checkpoint.  ``quiet`` silences the loop's prints (the JSONL is still
+    written).  ``epoch_hook(epoch, state)`` runs at each completed epoch
+    boundary with the live TrainState: after the epoch log and the
+    ``evalEvery`` event, before the checkpoint block, on the loop's thread.
+    The next step updates the state in place, so the hook must leave G in
+    its training mode and keep no reference past its return (the ledgers
+    score G through eval/common.live_generator).  Under multi-process the
+    hook runs on every rank, so it may hold collectives; ranks other than
+    0 are quiet."""
     if regime not in REGIMES:
         raise SystemExit(f"unknown regime {regime!r}; expected one of "
                          f"{', '.join(REGIMES)}")
@@ -314,6 +329,7 @@ def train(opt: Opt, regime: str):
     world = distributed.process_count()
     rank = distributed.process_index()
     is_main = rank == 0
+    quiet = quiet or not is_main
     # One process without a process group runs the single-device path; a
     # mesh request it cannot meet exits naming the world size.
     axis, n_data, n_shard = mesh_plan(opt, world)
@@ -323,7 +339,7 @@ def train(opt: Opt, regime: str):
         # Init and every per-step stream must agree across ranks.
         t = torch.tensor([seed], dtype=torch.int64, device=device)
         seed = int(comm.broadcast_(t, 0).item())
-    if is_main:
+    if not quiet:
         print(f"Seed: {seed}")
     mesh = None
     where = None
@@ -332,7 +348,7 @@ def train(opt: Opt, regime: str):
         mesh = (make_seq_mesh(n_data, n_shard) if axis == "seq"
                 else make_mesh(n_data, n_shard))
         where = coords(mesh)
-        if opt.display and is_main:
+        if opt.display and not quiet:
             print("display grids disabled under multi-process (each rank "
                   "holds a slice of the batch)")
         opt = opt.replace(display=False)
@@ -361,7 +377,7 @@ def train(opt: Opt, regime: str):
             found = restore_latest(opt.checkpointDir, opt.name, state)
             if found is not None:
                 start_epoch = found[1] + 1
-                if is_main:
+                if not quiet:
                     print(f"auto-resumed {opt.name} at epoch {found[1]}")
         elif opt.loadName and opt.loadIter:
             path = checkpoint_path(opt.checkpointDir, opt.loadName,
@@ -374,7 +390,7 @@ def train(opt: Opt, regime: str):
                 resume_miss = True  # reported on every rank below
             else:
                 start_epoch = opt.loadIter + 1
-                if is_main:
+                if not quiet:
                     print(f"Resumed {path} at epoch {opt.loadIter}")
     if multi and (opt.autoResume or (opt.loadName and opt.loadIter)):
         # Rank 0 writes the checkpoints; every rank restores from its own
@@ -413,8 +429,9 @@ def train(opt: Opt, regime: str):
         meta = read_meta(best_path)
         if opt.bestMetric in meta:
             best = float(meta[opt.bestMetric])
-            print(f"keepBest: resuming best-so-far {opt.bestMetric}="
-                  f"{best:.4g} from {best_path}")
+            if not quiet:
+                print(f"keepBest: resuming best-so-far {opt.bestMetric}="
+                      f"{best:.4g} from {best_path}")
 
     if where is not None and where.shard_axis == "seq":
         # each seq rank preprocesses its own frames of the clip
@@ -447,7 +464,7 @@ def train(opt: Opt, regime: str):
         corpus = device_data.to_device(arrays, device)
         dev_sampler = device_data.DeviceSampler(opt, regime, dd_meta, device)
         data_gen = torch.Generator(device=device)
-        if is_main:
+        if not quiet:
             print(f"dataDevice: {dd_meta['desc']} resident on device "
                   f"({sum(a.nbytes for a in arrays) / 1e6:.0f} MB); "
                   f"per-step host transfer: one seed")
@@ -461,7 +478,7 @@ def train(opt: Opt, regime: str):
                             seed=seed + 7919 * data_rank + 104729 * step0,
                             prefetch_depth=opt.prefetchDepth)
     logger = MetricsLogger(opt.name if is_main else f"{opt.name}_p{rank}",
-                           quiet=not is_main)
+                           quiet=quiet)
     ntrain = min(ds_size, opt.ntrain)
     steps_per_epoch = max(int(ntrain // opt.batchSize), 1)
     done = 0
@@ -510,7 +527,9 @@ def train(opt: Opt, regime: str):
                                   "split": opt.evalSplit,
                                   opt.bestMetric: val},
                             generator_only=True)
-        print(f"keepBest: {opt.bestMetric}={val:.4g} @epoch {epoch} -> {p}")
+        if not quiet:
+            print(f"keepBest: {opt.bestMetric}={val:.4g} @epoch {epoch} -> "
+                  f"{p}")
         return val
 
     def flush_log():
@@ -535,9 +554,10 @@ def train(opt: Opt, regime: str):
         # Live HTTP view over the JSONL and PNG dumps (the reference's
         # `display` server, train.lua:427-445).
         dashboard = Dashboard(opt.name, port=opt.display_port)
-        print(f"dashboard: http://localhost:{dashboard.port}/")
+        if not quiet:
+            print(f"dashboard: http://localhost:{dashboard.port}/")
     profiler = _StepProfiler(opt if is_main else opt.replace(profileSteps=0),
-                             device)
+                             device, quiet)
 
     # SIGTERM (preemption): finish the step in flight, checkpoint, exit
     # cleanly.  The handler only sets a flag; the work happens at the next
@@ -602,13 +622,18 @@ def train(opt: Opt, regime: str):
                         opt.checkpointDir, opt.name, epoch, state,
                         meta={"epoch": epoch, "regime": regime, "seed": seed,
                               "preempted_at_step": step0 + done})
-                    print(f"SIGTERM: checkpointed {p} at epoch {epoch} "
-                          f"step {done}; exiting cleanly")
+                    if not quiet:
+                        print(f"SIGTERM: checkpointed {p} at epoch {epoch} "
+                              f"step {done}; exiting cleanly")
+                    return state
+                if max_steps is not None and done >= max_steps:
                     return state
             flush_log()
             logger.log_epoch(epoch, opt.niter, time.perf_counter() - t_epoch)
             if opt.evalEvery > 0 and epoch % opt.evalEvery == 0:
                 best = eval_event(epoch, best)
+            if epoch_hook is not None:
+                epoch_hook(epoch, state)
             if epoch % opt.checkpointEvery == 0:
                 # Every rank joins the gather of a sharded bottleneck;
                 # rank 0 alone writes the full, single-device state.
@@ -624,7 +649,8 @@ def train(opt: Opt, regime: str):
                             meta={"epoch": epoch, "regime": regime,
                                   "seed": seed},
                             async_write=True)
-                        print(f"checkpoint: {p}")
+                        if not quiet:
+                            print(f"checkpoint: {p}")
     finally:
         # A failure in this teardown (a failed async write, divergence
         # caught at the last flush) is raised after it, and never in place
