@@ -157,10 +157,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  final checkpoints written, each scored from its file;
                  (c) each loss kernel launched once per step in each
                  direction in (a) and in (b), all on the row path.
+ 10. scripts -- the measurement tools (video_filler_tpu_torch/scripts/)
+                 on the card in their small ``VF_SMOKE=1`` mode, through
+                 their ``main``: profile_video3d (every video3d G stage and
+                 its 2-D reference, forward and forward plus dX, CUDA
+                 events), measure_remat (center and video3d, plain, remat,
+                 gradAccum 8 and both: peak memory of a step and its
+                 FLOPs) and ablate_video3d_step (the video3d step with f32
+                 Adam and with bf16 moments): every number finite, remat's
+                 FLOPs above plain's; each loss kernel launched once per
+                 microbatch in each direction over the tools' train steps.
 Then one JSON line of the kernels' numbers (at the video geometry, and by
-geometry under "geometries"; "launches" counts phases 5 and 9, apart
-under "launches_main_path" and "launches_ledger"; launches per rank of
-phase 8's runs under "launches_parallel"), and as the last line
+geometry under "geometries"; "launches" counts phases 5, 9 and 10, apart
+under "launches_main_path", "launches_ledger" and "launches_scripts";
+launches per rank of phase 8's runs under "launches_parallel"), and as
+the last line
 {"ok": true, "device": {...}}.
 
 Without CUDA, or outside a checkout of the repository, it exits non-zero
@@ -2249,6 +2260,73 @@ def ledger_phase(fl, tmp, smi, device="cuda", **over):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the measurement tools (video_filler_tpu_torch/scripts/).
+# ---------------------------------------------------------------------------
+
+ABLATE_BATCH = 4        # ablate_video3d_step's batch in the small mode
+
+
+def scripts_phase(fl, smi):
+    """Phase 10: the three measurement tools in their small mode on the
+    card.  Their train steps (measure_remat: 3 per configuration;
+    ablate_video3d_step: 3 warm-up and 2 timed per configuration) launch
+    the loss kernels once per microbatch in each direction.  Returns the
+    launches."""
+    from video_filler_tpu_torch.scripts import (
+        ablate_video3d_step,
+        measure_remat,
+        profile_video3d,
+    )
+    for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    os.environ["VF_SMOKE"] = "1"
+    try:
+        t0 = time.perf_counter()
+        rows = profile_video3d.main([])
+        bad = [r["tag"] for r in rows if not all(
+            math.isfinite(r[k]) and r[k] > 0
+            for k in ("fwd_ms", "bwd_ms", "fwd_tfs", "bwd_tfs"))]
+        if len(rows) != 23 or bad:
+            fail(f"profile_video3d: {len(rows)} rows, not finite: {bad}")
+        print(f"profile_video3d: {len(rows)} rows in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        remat = measure_remat.main([])
+        for r in remat:
+            if not all(math.isfinite(r[k]) and r[k] > 0 for k in (
+                    "peak_mib", "state_mib", "gflops")):
+                fail(f"measure_remat: {r}")
+        for regime in measure_remat.CELLS:
+            fl_ = {r["config"]: r["gflops"] for r in remat
+                   if r["regime"] == regime}
+            if not fl_["remat"] > fl_["plain"]:
+                fail(f"measure_remat {regime}: remat FLOPs {fl_['remat']} "
+                     f"not above plain's {fl_['plain']}")
+        print(f"measure_remat: {len(remat)} rows in "
+              f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ablate = ablate_video3d_step.main([str(ABLATE_BATCH)])
+        if len(ablate) != 2 or not all(math.isfinite(r["ms"]) and r["ms"] > 0
+                                       for r in ablate):
+            fail(f"ablate_video3d_step: {ablate}")
+        print(f"ablate_video3d_step: {len(ablate)} rows in "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        del os.environ["VF_SMOKE"]
+    micro = {"plain": 1, "remat": 1, "gradAccum=8": 8,
+             "remat+gradAccum=8": 8}
+    steps = (3 * sum(micro[r["config"]] for r in remat)
+             + (ablate_video3d_step.WARMUP + 2) * len(ablate))
+    launches = {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
+    if launches["fwd"] != steps or launches["bwd"] != steps:
+        fail(f"phase 10: loss kernels launched {launches} times in {steps} "
+             f"microbatch steps, not once per microbatch in each direction")
+    print(f"loss-kernel launches over the tools' steps: {launches} on {smi}")
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -2348,6 +2426,13 @@ def main() -> None:
         t0 = time.perf_counter()
         ledger_launches = ledger_phase(fl, tmp, smi_line)
         print(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    phase("10 scripts")
+    t0 = time.perf_counter()
+    script_launches = scripts_phase(fl, smi_line)
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
     print(f"every phase passed in {time.perf_counter() - T0:.1f} s")
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
@@ -2367,10 +2452,11 @@ def main() -> None:
         {"name": f"fused_weighted_mse_{k}", "route": "cuda", "source": rel,
          "replaces": f"{ref}:{line}", **numbers(main_geom, k),
          "launches": run["launches"][k]
-         + sum(n[k] for n in ledger_launches.values()),
+         + sum(n[k] for n in ledger_launches.values()) + script_launches[k],
          "launches_main_path": run["launches"][k],
          "launches_ledger": {name: n[k]
                              for name, n in ledger_launches.items()},
+         "launches_scripts": script_launches[k],
          "launches_video3d": run["launches_video3d"][k],
          "launches_parallel": {
              name: {rank: n[k] for rank, n in ranks.items()}

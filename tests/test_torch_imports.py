@@ -89,7 +89,9 @@ print(" ".join(names))
 NEW_MODULES = ["checkpoint.t7", "utils.dashboard", "data.native",
                "data.device_data", "eval.export", "ledger.common",
                "ledger.presets", "ledger.keepbest", "ledger.rescore",
-               "ledger.compare"]
+               "ledger.compare", "scripts.common", "scripts.profile_video3d",
+               "scripts.measure_remat", "scripts.ablate_video3d_step",
+               "scripts.render_gallery_lw", "scripts.bisect_heldout_video"]
 
 
 def test_every_port_module_imports_with_the_jax_package_refused():

@@ -31,7 +31,7 @@ from video_filler_tpu_torch.config import Opt
 from video_filler_tpu_torch.data import synthetic
 from video_filler_tpu_torch.eval import metrics
 from video_filler_tpu_torch.ledger import common, presets
-from video_filler_tpu_torch.ledger.compare import compare
+from video_filler_tpu_torch.ledger.compare import align_tags, compare
 from video_filler_tpu_torch.ledger.__main__ import main as ledger_main
 from video_filler_tpu_torch.ledger.keepbest import run_keepbest
 from video_filler_tpu_torch.ledger.rescore import rescore
@@ -404,6 +404,46 @@ def test_compare_holds_rows_to_the_limits(tmp_path, capsys):
     out = capsys.readouterr().out
     assert ("| center | step3000 | test |  | 0.1000 ± 0.0010 | 0.1000 ± "
             "0.0010 | +0.0% | 22.00 | 20.90 | -1.10 | miss |") in out
+
+
+def test_compare_aligns_the_scripts_tags_by_position(tmp_path, capsys):
+    """The JAX scripts tag some ledgers ``mid`` / ``final`` (condadv) or
+    ``step800`` (the re-scored noisegen rows) where the port tags the step
+    reached: a regime with as many tags on both sides is matched by
+    position, the run's tag kept as ``run_ckpt``; a regime whose tags
+    already agree, or whose counts differ, is left as it is."""
+    def row(regime, ckpt, hole=0.1):
+        return {"regime": regime, "ckpt": ckpt, "evalSplit": "train",
+                "hole_l2": hole, "hole_l2_std": 0.001, "psnr_db": 20.0}
+    ref = [row("center", t) for t in ("init", "mid", "final")] + \
+        [row("logo", t) for t in ("init", "step800", "step3000")]
+    got = [row("center", t) for t in ("init", "step801", "step3000")] + \
+        [row("logo", t) for t in ("init", "step800", "step3000")] + \
+        [row("video", "init")]
+    aligned = align_tags(ref, got)
+    assert [(r["regime"], r["ckpt"], r.get("run_ckpt")) for r in aligned] \
+        == [("center", "init", None), ("center", "mid", "step801"),
+            ("center", "final", "step3000"), ("logo", "init", None),
+            ("logo", "step800", None), ("logo", "step3000", None),
+            ("video", "init", None)]
+    assert got[2]["ckpt"] == "step3000"          # the input is not changed
+    for name, rows in (("ref.json", ref), ("run.json", got)):
+        with open(tmp_path / name, "w") as f:
+            json.dump(rows, f)
+    ledger_main(["compare", str(tmp_path / "ref.json"),
+                 str(tmp_path / "run.json")])
+    out = capsys.readouterr().out
+    assert "| center | final | train | run_ckpt=step3000 |" in out
+    assert out.count("| ok |") == 4              # init and final, twice
+    # a reference scored before the std columns existed (round-3 files)
+    for r in ref:
+        del r["hole_l2_std"]
+    with open(tmp_path / "ref.json", "w") as f:
+        json.dump(ref, f)
+    ledger_main(["compare", str(tmp_path / "ref.json"),
+                 str(tmp_path / "run.json")])
+    assert ("| logo | step3000 | train |  | 0.1000 | 0.1000 ± 0.0010 |"
+            in capsys.readouterr().out)
 
 
 # --- the presets against the scripts' text ----------------------------------
