@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
   3. kernels  -- the fused weighted-MSE kernels against their plain PyTorch
                  versions on the card, at the operands the main paths give
                  them: the center shape (64,64,64,3) with (1,64,64,1) ring
-                 weights in f32 and with bf16 pred, a ragged (3,7,9,5) with
-                 strided operands, and the 128x128 regimes -- video
+                 weights in f32 and with bf16 pred, the center shape at
+                 batch 512 (the bench's headline step) in bf16, a ragged
+                 (3,7,9,5) with strided operands, and the 128x128
+                 regimes -- video
                  (64,128,128,12) bf16 pred with (64,128,128,1) mask weights,
                  one gradAccum 4 microbatch of it, (16,128,128,12) with
                  (16,128,128,1) weights (the center microbatch of batch 512
@@ -72,9 +74,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  Every logged metric finite; each loss kernel launched once
                  per microbatch in each direction (steps x gradAccum) on
                  every run, all on the row path (no generic launch).
-  6. timing   -- 20 steps on one device-resident batch, center, video,
-                 video3d and each step option of phase 5: ms/step,
-                 clips/s, peak memory, device idle share.  Then center and
+  6. timing   -- 20 steps on one device-resident batch, video, video3d
+                 and each step option of phase 5 (the center step at
+                 batch 64 is phase 11's): ms/step, clips/s, peak memory,
+                 device idle share.  Then center and
                  video as the loop runs them, batch and all: the host
                  loader's step (decode, copy, preprocess, step) and the
                  ``dataDevice`` step (sampler, preprocess, step) in turns
@@ -167,9 +170,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
                  Adam and with bf16 moments): every number finite, remat's
                  FLOPs above plain's; each loss kernel launched once per
                  microbatch in each direction over the tools' train steps.
+ 11. bench   -- the timing tools (video_filler_tpu_torch/bench.py and
+                 scripts/bench_*.py) on the card in their small
+                 ``VF_SMOKE=1`` mode, through their ``main``: bench (the
+                 fused center step at two batches, its JSON line, the
+                 card's streaming rate), bench_e2e_datadevice (the three
+                 legs through ``train``), bench_loader (a 2 s window per
+                 row), bench_serve_video_frame and bench_serve_wholeim (the
+                 360x480 servers' device functions): every number finite
+                 and positive, the bench's share of 3.35 TB/s at most
+                 100% (bench.roofline raises above); then the bench's
+                 batch-64 leg at full width for 20 steps, the one timing
+                 of the center step: ms/step, clips/s, bytes and share,
+                 device busy, peak memory, the loss kernels' share; each
+                 loss kernel launched once per step in each direction
+                 over the phase, all on the row path.
 Then one JSON line of the kernels' numbers (at the video geometry, and by
-geometry under "geometries"; "launches" counts phases 5, 9 and 10, apart
-under "launches_main_path", "launches_ledger" and "launches_scripts";
+geometry under "geometries"; "launches" counts phases 5, 9, 10 and 11,
+apart under "launches_main_path", "launches_ledger", "launches_scripts"
+and "launches_bench";
 launches per rank of phase 8's runs under "launches_parallel"), and as
 the last line
 {"ok": true, "device": {...}}.
@@ -244,32 +263,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int) -> float:
-    """Mean device milliseconds per call of ``fn``: the kernels' own time,
-    summed from a torch.profiler trace.  A trace that recorded no device
-    activity at all is taken again, up to twice: CUPTI now and then
-    delivers an empty one."""
+    """Mean device milliseconds per call of ``fn`` after one warm call:
+    the kernels' own time, summed from a torch.profiler trace
+    (scripts/common.py ``device_busy_ms``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from video_filler_tpu_torch.scripts.common import device_busy_ms
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in device_rows(prof))
-        if total_us > 0:
-            break
-    return total_us / 1e3 / iters
-
-
-def device_rows(prof):
-    """The trace's device activities (kernels, copies, memsets), without
-    the annotation ranges that span them."""
-    import torch
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation]
+    return device_busy_ms(lambda i: fn(), iters)
 
 
 def cold_device_ms(torch, fn, iters: int, scratch) -> float:
@@ -280,6 +282,8 @@ def cold_device_ms(torch, fn, iters: int, scratch) -> float:
     the launches is taken again, up to twice: CUPTI now and then drops
     events of the few-microsecond kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from video_filler_tpu_torch.scripts.common import device_rows
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -330,6 +334,11 @@ def kernel_operands(torch, losses, masks):
     target = masks.extract_center(real)                 # strided view
     ring = losses.overlap_l2_weights((64, 64), 4, 0.999, device=dev)[None]
     pred_c = torch.randn(64, 64, 64, 3, generator=g, device=dev)
+    # the bench's headline step: center at batch 512
+    target_512 = masks.extract_center(
+        torch.randn(512, 128, 128, 3, generator=g, device=dev))
+    pred_512 = torch.randn(512, 64, 64, 3, generator=g,
+                           device=dev).bfloat16()
     # ragged: pred is a permuted (non-contiguous) view, weights (B,H,W,1)
     pred_r = torch.randn(3, 5, 7, 9, generator=g, device=dev).permute(
         0, 2, 3, 1)
@@ -360,6 +369,7 @@ def kernel_operands(torch, losses, masks):
     return [
         ("center f32", pred_c, target, ring),
         ("center bf16", pred_c.bfloat16(), target, ring),
+        ("center b512 bf16", pred_512, target_512, ring),
         ("ragged f32", pred_r, target_r, w_r),
         ("ragged bf16", pred_r.bfloat16(), target_r, w_r),
         ("video bf16", fake, clip, w_vid),
@@ -469,6 +479,8 @@ def library_check(torch, fl, losses, masks):
 
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
+
+    from video_filler_tpu_torch.scripts.common import device_rows
     if "weight" not in inspect.signature(F.mse_loss).parameters:
         print(f"library call: none.  F.mse_loss on torch "
               f"{torch.__version__} takes no weights")
@@ -1135,22 +1147,14 @@ def t7_exchange(torch, np, from_args, split_regime, center_args, net, tmp,
 
 def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
            profile):
-    """Phase 6: center, video and video3d steps, each on one
-    device-resident batch with only its own state alive.  The center state
-    is dropped from ``run`` once timed."""
-    state_c = run.pop("center_state")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    opt = from_args(split_regime(run["center_args"])[1])
-    raw = torch.randint(0, 256, (64, 128, 128, 3), generator=g,
-                        dtype=torch.uint8, device="cuda")
-    batch = step_mod.make_preprocess(opt, "center")(
-        {"raw": raw}, torch.Generator().manual_seed(0))
-    time_step(torch, step_mod.make_train_step(opt, "center"), state_c, batch,
-              "center step, batch 64, full width, bf16", smi_line,
-              knum["center bf16"])
-    # Each configuration's peak memory holds its own state only.
-    del state_c, batch
+    """Phase 6: video and video3d steps and the step options, each on one
+    device-resident batch with only its own state alive.  Phase 5's center
+    state is dropped from ``run`` first."""
+    # The center step at batch 64 is timed once, by the bench's leg in
+    # phase 11.  Each configuration's peak memory holds its own state only.
+    del run["center_state"]
     gc.collect()
+    g = torch.Generator(device="cuda").manual_seed(0)
     opt = from_args(split_regime(run["video"])[1])
     state = step_mod.init_train_state(opt, "video",
                                       torch.Generator().manual_seed(0))
@@ -1212,6 +1216,8 @@ def timing(torch, step_mod, from_args, split_regime, run, knum, smi_line,
 def profile_table(torch, step_fn, state, batch):
     """--profile: device time by kernel over 5 steps."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from video_filler_tpu_torch.scripts.common import device_rows
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
@@ -2327,6 +2333,108 @@ def scripts_phase(fl, smi):
     return launches
 
 
+BENCH_FULL_STEPS = 20   # the bench's batch-64 leg at full width
+
+
+def _positive(label, values):
+    bad = {k: v for k, v in values.items()
+           if not (isinstance(v, (int, float)) and math.isfinite(v)
+                   and v > 0)}
+    if bad:
+        fail(f"phase 11: {label}: not finite and positive: {bad}")
+
+
+def bench_phase(fl, smi, knum):
+    """Phase 11: the five timing tools in their small mode on the card,
+    then the bench's batch-64 leg at full width (``knum``: phase 3's
+    center numbers, for the loss kernels' share).  Every train step
+    (bench: WARMUP + iters + PROFILED per leg; bench_e2e_datadevice: every
+    epoch of every leg) launches the loss kernels once in each direction.
+    Returns the launches."""
+    import torch
+
+    from video_filler_tpu_torch import bench
+    from video_filler_tpu_torch.config import Opt
+    from video_filler_tpu_torch.scripts import (
+        bench_e2e_datadevice as e2e,
+        bench_loader,
+        bench_serve_video_frame,
+        bench_serve_wholeim,
+    )
+    for counts in (fl.LAUNCHES, fl.VARIANT_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    os.environ["VF_SMOKE"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+            t0 = time.perf_counter()
+            line = bench.main([])
+            _positive("bench", {k: line[k] for k in (
+                "value", "vs_baseline", "batch64_ms_per_step",
+                "hbm_gbps_achieved", "pct_of_streaming_roofline")})
+            steps = 2 * (bench.WARMUP + bench.SMOKE_ITERS + bench.PROFILED)
+            print(f"bench: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            rows = e2e.main([f"work={tmp}/e2e"])
+            for r in rows:
+                _positive(f"e2e {r['tag']}", {k: r[k] for k in (
+                    "steps", "seconds", "ms_per_step", "clips_per_sec")})
+            if len(rows) != len(e2e.SMOKE_LEGS):
+                fail(f"phase 11: e2e wrote {len(rows)} rows")
+            steps += sum((w + t) * (e2e.SMOKE_IMAGES // kw["batchSize"])
+                         for _, w, t, kw in e2e.SMOKE_LEGS)
+            print(f"bench_e2e_datadevice: {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            rows = bench_loader.main(["seconds=2", f"work={tmp}/loader"])
+            for r in rows:
+                if "unavailable" not in r:
+                    _positive(f"loader {r['regime']} {r['decode']}", {
+                        k: r[k] for k in ("samples_per_sec",
+                                          "frames_per_sec_per_core")})
+                elif r["decode"] != "native C++":
+                    fail(f"phase 11: loader row {r}")
+            if len(rows) != 4 or all("unavailable" in r for r in rows):
+                fail(f"phase 11: loader rows {rows}")
+            print(f"bench_loader: {time.perf_counter() - t0:.1f} s")
+            for tool in (bench_serve_video_frame, bench_serve_wholeim):
+                t0 = time.perf_counter()
+                rows = tool.main([f"work={tmp}/serve"])
+                for r in rows:
+                    _positive(tool.__name__, {k: r[k] for k in (
+                        "ms_per_batch", "ms_per_frame", "frames_per_sec",
+                        "device_busy_ms_per_batch")})
+                print(f"{tool.__name__.rsplit('.', 1)[1]}: {len(rows)} rows "
+                      f"in {time.perf_counter() - t0:.1f} s")
+    finally:
+        del os.environ["VF_SMOKE"]
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    opt = Opt(**{**bench.OPT, "batchSize": 64}, device="cuda")
+    full = bench.time_step(opt, dev, BENCH_FULL_STEPS)
+    gbps, pct = bench.roofline(full["bytes"], full["ms"])
+    steps += bench.WARMUP + BENCH_FULL_STEPS + bench.PROFILED
+    _positive("bench at full width", full)
+    loss_ms = knum["fwd"] + knum["bwd"]
+    print(f"center step (bench), batch 64, full width, bf16: "
+          f"{full['ms']:.3f} ms/step over {BENCH_FULL_STEPS} steps, "
+          f"{64e3 / full['ms']:.1f} clips/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"{full['bytes']} bytes a step: {gbps:.1f} GB/s = {pct:.2f}% of "
+          f"3.35 TB/s; device busy {full['busy_ms']:.3f} ms a step: idle "
+          f"share {100 * (1 - full['busy_ms'] / full['ms']):.1f}%; loss "
+          f"kernels (fwd+bwd, device) {loss_ms * 1e3:.1f} us = "
+          f"{100 * loss_ms / full['ms']:.2f}% of the step; on {smi} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    launches = {**fl.LAUNCHES, **fl.VARIANT_LAUNCHES}
+    if launches != {"fwd": steps, "bwd": steps, "row": 2 * steps,
+                    "generic": 0}:
+        fail(f"phase 11: loss kernels launched {launches} in {steps} "
+             f"steps, not once per step in each direction on the row path")
+    print(f"loss-kernel launches over the timing tools' steps: {launches} "
+          f"on {smi}")
+    return launches
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "video_filler_tpu_torch")):
         fail("run from a checkout of the repository (video_filler_tpu_torch/ "
@@ -2433,6 +2541,13 @@ def main() -> None:
     t0 = time.perf_counter()
     script_launches = scripts_phase(fl, smi_line)
     print(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("11 bench")
+    t0 = time.perf_counter()
+    bench_launches = bench_phase(fl, smi_line, knum["center bf16"])
+    print(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
     print(f"every phase passed in {time.perf_counter() - T0:.1f} s")
     rel = "video_filler_tpu_torch/csrc/fused_loss.cu"
@@ -2452,11 +2567,13 @@ def main() -> None:
         {"name": f"fused_weighted_mse_{k}", "route": "cuda", "source": rel,
          "replaces": f"{ref}:{line}", **numbers(main_geom, k),
          "launches": run["launches"][k]
-         + sum(n[k] for n in ledger_launches.values()) + script_launches[k],
+         + sum(n[k] for n in ledger_launches.values()) + script_launches[k]
+         + bench_launches[k],
          "launches_main_path": run["launches"][k],
          "launches_ledger": {name: n[k]
                              for name, n in ledger_launches.items()},
          "launches_scripts": script_launches[k],
+         "launches_bench": bench_launches[k],
          "launches_video3d": run["launches_video3d"][k],
          "launches_parallel": {
              name: {rank: n[k] for rank, n in ranks.items()}

@@ -91,7 +91,10 @@ NEW_MODULES = ["checkpoint.t7", "utils.dashboard", "data.native",
                "ledger.presets", "ledger.keepbest", "ledger.rescore",
                "ledger.compare", "scripts.common", "scripts.profile_video3d",
                "scripts.measure_remat", "scripts.ablate_video3d_step",
-               "scripts.render_gallery_lw", "scripts.bisect_heldout_video"]
+               "scripts.render_gallery_lw", "scripts.bisect_heldout_video",
+               "bench", "scripts.bench_e2e_datadevice",
+               "scripts.bench_loader", "scripts.bench_serve_video_frame",
+               "scripts.bench_serve_wholeim"]
 
 
 def test_every_port_module_imports_with_the_jax_package_refused():

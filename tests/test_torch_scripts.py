@@ -40,8 +40,13 @@ from video_filler_tpu_torch.config import Opt
 from video_filler_tpu_torch.data import synthetic
 from video_filler_tpu_torch.ledger import presets
 from video_filler_tpu_torch.ledger.__main__ import main as ledger_main
+from video_filler_tpu_torch import bench
 from video_filler_tpu_torch.scripts import (
     ablate_video3d_step,
+    bench_e2e_datadevice,
+    bench_loader,
+    bench_serve_video_frame,
+    bench_serve_wholeim,
     bisect_heldout_video as bisect,
     measure_remat,
     profile_video3d,
@@ -161,7 +166,10 @@ def test_ablate_video3d_step_configurations_match_the_jax_script(
 
 
 @pytest.mark.parametrize("tool", [profile_video3d, measure_remat,
-                                  ablate_video3d_step])
+                                  ablate_video3d_step, bench,
+                                  bench_e2e_datadevice, bench_loader,
+                                  bench_serve_video_frame,
+                                  bench_serve_wholeim])
 def test_tools_run_on_the_card_unless_told(tool):
     """Without ``device=cpu`` a tool takes the card, and where there is
     none it raises rather than measure the CPU."""

@@ -1,5 +1,6 @@
 """What the measurement tools share: their ``key=value`` options, the
-device they run on and its description, and a timer."""
+device they run on and its description, two timers and the device's busy
+time."""
 
 from __future__ import annotations
 
@@ -30,23 +31,32 @@ def tool_device(opts: dict[str, str]) -> torch.device:
     return resolve_device(Opt(device=opts.pop("device", "cuda")))
 
 
-def describe(device: torch.device) -> str:
-    """The device a tool's numbers come from: on the card its name and
-    power limit as ``nvidia-smi`` prints them, and the cuDNN settings the
-    tool runs under; on the CPU a line saying the times are the host's."""
+def card(device: torch.device) -> str:
+    """What a tool's row names as its device: on the card its name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit`` prints
+    them; on the CPU that the numbers are the host's."""
     if device.type != "cuda":
-        return ("device: cpu (host times, not a device metric; memory not "
-                "measured)")
+        return "cpu (host times, not a device metric)"
     try:
-        smi = subprocess.run(
+        return subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=60).stdout.strip().splitlines()[0]
     except (OSError, IndexError, subprocess.TimeoutExpired) as e:
-        smi = f"nvidia-smi unavailable: {e}"
-    return (f"device: {torch.cuda.get_device_name(device)}; {smi}; torch "
-            f"{torch.__version__} cuda {torch.version.cuda}; cudnn.benchmark "
-            f"{torch.backends.cudnn.benchmark}, cudnn.allow_tf32 "
+        return f"nvidia-smi unavailable: {e}"
+
+
+def describe(device: torch.device) -> str:
+    """The device a tool's numbers come from: on the card its name and
+    power limit (``card``), and the cuDNN settings the tool runs under; on
+    the CPU a line saying the times are the host's."""
+    if device.type != "cuda":
+        return ("device: cpu (host times, not a device metric; memory not "
+                "measured)")
+    return (f"device: {torch.cuda.get_device_name(device)}; {card(device)}; "
+            f"torch {torch.__version__} cuda {torch.version.cuda}; "
+            f"cudnn.benchmark {torch.backends.cudnn.benchmark}, "
+            f"cudnn.allow_tf32 "
             f"{torch.backends.cudnn.allow_tf32}, matmul.allow_tf32 "
             f"{torch.backends.cuda.matmul.allow_tf32}")
 
@@ -76,3 +86,43 @@ def time_ms(fn, iters: int, device: torch.device, warmup: int = 3) -> float:
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def wall_ms(fn, iters: int, device: torch.device) -> float:
+    """Milliseconds per call of ``fn(i)``, i = 0..iters-1, on the host
+    clock between two synchronizations of the card: the time a caller
+    waits, host dispatch included (where the host holds the card back,
+    CUDA events around the calls would show only the device's share).
+    The caller warms up first."""
+    sync(device)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    sync(device)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_rows(prof) -> list:
+    """A torch.profiler trace's device activities (kernels, copies,
+    memsets), without the annotation ranges that span them."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def device_busy_ms(fn, iters: int) -> float:
+    """Milliseconds of device work per call of ``fn(i)`` on the card: the
+    kernels', copies' and memsets' own times summed from a torch.profiler
+    trace of ``iters`` calls.  A trace with no device activity (CUPTI now
+    and then delivers an empty one) is taken again, up to twice."""
+    from torch.profiler import ProfilerActivity, profile
+    total_us = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in device_rows(prof))
+        if total_us > 0:
+            break
+    return total_us / 1e3 / iters
